@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function has the signature of its wrapper in `ops.py`, so the two are
+interchangeable: the wrappers take these for CPU tensors, the CPU tests
+hold them against the JAX package, and `chip_smoke.py` holds each CUDA
+kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import object_table as ot
+from repro_torch.models import attention as attn_lib
+
+_I32 = torch.int32
+
+
+def migrate(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+            ok: torch.Tensor) -> torch.Tensor:
+    """In place: data[dst[i]] = data[src[i]] for every ok[i], every source
+    read before any write. data is [n_rows, W] whose LAST row is the
+    pool's all-zero scratch row: masked moves copy it onto itself, so it
+    stays zero. Sources clamp into range (XLA gather semantics);
+    destinations out of range are dropped. Returns data."""
+    scratch = data.shape[0] - 1
+    s = torch.where(ok, src.clamp(0, scratch), scratch).long()
+    in_range = ok & (dst >= 0) & (dst < data.shape[0])
+    d = torch.where(in_range, dst, scratch).long()
+    rows = data[s]
+    data[d] = torch.where(in_range[:, None], rows, data[scratch])
+    return data
+
+
+def access_scan(table: torch.Tensor, ciw_threshold: torch.Tensor, *,
+                sb_slots: int, n_sbs: int, with_hist: bool = True
+                ) -> Tuple[torch.Tensor, ...]:
+    """One pass over the packed table words [N] int32. Returns (new_table
+    with CIW updated, to_hot [N] bool, to_cold [N] bool, hist [n_sbs] int32
+    (accessed objects per superblock of their current slot; zeros when
+    with_hist is False), skipped [] int32 (live objects the ATC rule
+    vetoed))."""
+    live = ot.is_live(table)
+    acc = (ot.access_of(table) == 1) & live
+    atc = ot.atc_of(table)
+    heap = ot.heap_of(table)
+    ciw = torch.where(acc, 0, torch.clamp(ot.ciw_of(table) + 1,
+                                          max=ot.CIW_SAT))
+    ciw = torch.where(live, ciw, 0)
+    ct = torch.floor(ciw_threshold).to(_I32)
+    movable = live & (atc == 0)
+    to_hot = acc & ((heap == ot.NEW) | (heap == ot.COLD)) & movable
+    to_cold = (~acc) & (ciw > ct) & ((heap == ot.NEW) | (heap == ot.HOT)) \
+        & movable
+    new_table = ot.with_ciw(table, ciw)
+    hist = torch.zeros(n_sbs, dtype=_I32, device=table.device)
+    if with_hist:
+        sb = (ot.slot_of(table) // sb_slots).long()
+        hist = ot.add_drop(hist, torch.where(acc, sb, n_sbs), 1)
+    skipped = (live & (atc > 0) & (acc | ((ciw > ct) & (heap != ot.COLD)))
+               ).sum(dtype=_I32)
+    return new_table, to_hot, to_cold, hist, skipped
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                    seq_lens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query token per sequence over a block-paged KV cache.
+
+    q: [B, H, D]; k_pages/v_pages: [n_slots, bt, KV, D] (the pool's data,
+    possibly strided views); block_tables: [B, MB] physical slot per
+    logical block (-1 = unused); seq_lens: [B]. Positions at or past
+    seq_len, and blocks with table -1, are masked. A lane with no valid
+    position returns zeros (the TPU kernel returns a mean over slot 0
+    there, which `kvcache.attend` masks out either way). Returns
+    (out [B, H, D] in q's dtype, touched [B, MB] bool — the access bits:
+    block j was read iff j*bt < seq_len and its table entry is >= 0)."""
+    b, h, d = q.shape
+    n_slots, bt, kv, _ = k_pages.shape
+    mb = block_tables.shape[1]
+    safe = block_tables.clamp(0, n_slots - 1).long()
+    # fp32 arithmetic, as the kernels (TPU and CUDA) do
+    k = k_pages[safe].reshape(b, mb * bt, kv, d).float()
+    v = v_pages[safe].reshape(b, mb * bt, kv, d).float()
+    pos = torch.arange(mb * bt, device=q.device)[None]
+    valid = (pos < seq_lens[:, None]) & \
+        torch.repeat_interleave(block_tables >= 0, bt, dim=1)
+    out, m, l = attn_lib.decode_attention_partial(q[:, None].float(), k, v,
+                                                  valid)
+    out = out / torch.clamp(l, min=1e-30).movedim(1, -1)[..., None]
+    out = torch.where(valid.any(1)[:, None, None, None], out, 0)
+    touched = (torch.arange(mb, device=q.device)[None] * bt
+               < seq_lens[:, None]) & (block_tables >= 0)
+    return out[:, 0].to(q.dtype), touched

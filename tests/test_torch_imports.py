@@ -1,0 +1,45 @@
+"""The port stands alone: importing every module of `repro_torch` loads no
+JAX and nothing of the JAX package, and `chip_smoke.py` imports neither."""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")  # the port's tests need PyTorch
+import repro_torch  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _banned(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_port_imports_no_jax_and_no_repro():
+    mods = sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+    assert "repro_torch.runtime.server" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}).stdout.split()
+    assert not [m for m in out if _banned(m)]
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert names and not [n for n in names if _banned(n)]
+    assert any(n.startswith("repro_torch") for n in names)
