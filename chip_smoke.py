@@ -13,17 +13,25 @@ order:
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it and at the CPU tests' shapes
      (access_scan and migrate exactly, paged_attention within 2e-2 in
-     bf16 and 2e-5 in fp32, its access bits exactly), then timed with CUDA
-     events beside its plain version, a one-call PyTorch yardstick where
-     one exists, and the least time the card could take (bound_ms);
+     bf16 and 2e-5 in fp32, its access bits exactly), then timed beside
+     its plain version, a one-call PyTorch yardstick where one exists, and
+     the least time the card could take (bound_ms): per call over
+     back-to-back calls with CUDA events (`ms`, `plain_ms`, `library_ms`)
+     and as device time from a torch.profiler trace (`device_ms`, ...);
   4. the serving path: `Server.serve` with chatglm3-6b at its full
      published width and depth (28 layers, random bf16 weights from a
      seeded generator), 8 lanes, max_len 512, 16-token blocks, 16 greedy
      requests; every kernel's launch count is reset just before and read
      just after, and the run must complete every request, launch every
-     kernel, migrate rows, take one dispatch per window and end with KV
-     RSS 0;
-  5. the kernel path against the plain path on the card at 2 layers and
+     kernel, migrate rows and end with KV RSS 0. CUDA's sync debug mode
+     counts the synchronising operations of the run: none may fall inside
+     a window and exactly one at each window's close;
+  5. where the serve time goes: the same requests served again with
+     torch.profiler on for two windows in mid-run; the device's busy and
+     idle share of those windows' unprofiled wall time (from phase 4),
+     kernels per step, host syncs and copies per window, and each HADES
+     kernel's device time per launch;
+  6. the kernel path against the plain path on the card at 2 layers and
      full width, teacher-forced: pool metadata exactly, logits within 5e-2.
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
@@ -32,10 +40,13 @@ output are nvidia-smi's name/power line, a JSON line with every kernel's
 numbers, and {"ok": true, "device": {...}}. The numbers also go to
 build/chip_smoke.json.
 """
+import collections
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -48,6 +59,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int32": 67e12}
 SERVE = dict(batch=8, max_len=512, block_tokens=16, collect_every=8)
 N_REQUESTS, MAX_NEW = 16, 32
+TRACE_FROM = 6     # first of the two traced serve windows; lanes are full
+HADES_KERNELS = {"paged_attention": ("paged_attention_kernel",),
+                 "access_scan": ("access_scan_kernel",),
+                 "migrate": ("gather_rows", "scatter_rows")}
 TPU_KERNEL = {
     "paged_attention": "src/repro/kernels/paged_attention.py:74",
     "access_scan": "src/repro/kernels/access_scan.py:88",
@@ -84,6 +99,46 @@ def cuda_time(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_time(fn, iters: int) -> float:
+    """Device ms per call of fn(): the summed durations of every kernel,
+    memset and copy in a torch.profiler trace of `iters` back-to-back calls
+    after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise AssertionError("the profiler recorded no device activity")
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters
+
+
+def timings(fn, iters: int, plain, plain_iters: int, library=None) -> dict:
+    """The kernel's, its plain version's and the library call's time per
+    call: CUDA events over back-to-back calls and profiler device time."""
+    out = dict(ms=cuda_time(fn, iters), device_ms=device_time(fn, iters),
+               plain_ms=cuda_time(plain, plain_iters),
+               plain_device_ms=device_time(plain, plain_iters),
+               library_ms=None, library_device_ms=None)
+    if library is not None:
+        out.update(library_ms=cuda_time(library, iters),
+                   library_device_ms=device_time(library, iters))
+    return out
+
+
+def _fmt(t: dict) -> str:
+    lib = (f", library {t['library_ms']:.4f} / {t['library_device_ms']:.4f}"
+           if t["library_ms"] is not None else "")
+    return (f"{t['ms']:.4f} ms per call / {t['device_ms']:.4f} ms device "
+            f"(plain {t['plain_ms']:.4f} / {t['plain_device_ms']:.4f}{lib})")
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -125,14 +180,12 @@ def check_access_scan(dev, pcfg):
     n = pcfg.max_objects
     table = _random_table(g, n, pcfg.n_slots, dev)
     kw = dict(sb_slots=pcfg.sb_slots, n_sbs=pcfg.n_sbs, with_hist=False)
-    ms = cuda_time(lambda: ops.access_scan(table, ct, **kw), 200)
-    plain_ms = cuda_time(lambda: ref.access_scan(table, ct, **kw), 50)
+    t = timings(lambda: ops.access_scan(table, ct, **kw), 200,
+                lambda: ref.access_scan(table, ct, **kw), 50)
     b_ms, b_by = bound(n * (4 + 4 + 1 + 1) + 8, 20 * n, "int32")
     log(f"access_scan: exact at {[s[0] for s in shapes]} words, with and "
-        f"without hist; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.5f} ms) at N={n}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+        f"without hist; {_fmt(t)}, bound {b_ms:.7f} ms at N={n}")
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, **t,
                 shape=f"table [{n}] int32, n_sbs {pcfg.n_sbs}")
 
 
@@ -169,21 +222,19 @@ def check_migrate(dev, pcfg, budget):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("migrate differs at the collector's shape")
-    ms = cuda_time(lambda: ops.migrate(data, src, dst, ok), 100)
-    plain_ms = cuda_time(lambda: ref.migrate(data, src, dst, ok), 20)
     sel_s, sel_d = src[ok].long(), dst[ok].long()
 
     def library():
         data[sel_d] = data[sel_s]
-    lib_ms = cuda_time(library, 20)
+    t = timings(lambda: ops.migrate(data, src, dst, ok), 100,
+                lambda: ref.migrate(data, src, dst, ok), 20, library)
     n_ok = int(ok.sum())
     row_bytes = pcfg.slot_words * 2
     b_ms, b_by = bound(2 * n_ok * row_bytes + 2 * budget * 9, 0, "bf16")
-    log(f"migrate: exact (hot/cold overlap, scratch row zero); {ms:.4f} ms "
-        f"(plain {plain_ms:.4f}, data[dst]=data[src] {lib_ms:.4f}, bound "
-        f"{b_ms:.5f} ms) for {n_ok} of {2 * budget} moves of {row_bytes} B")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
+    log(f"migrate: exact (hot/cold overlap, scratch row zero); {_fmt(t)} "
+        f"(library: data[dst]=data[src]), bound {b_ms:.5f} ms for {n_ok} of "
+        f"{2 * budget} moves of {row_bytes} B")
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, **t,
                 shape=f"{n_ok} moves of {row_bytes} B rows")
 
 
@@ -228,8 +279,6 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg):
             f"{err:.3g} < {tol}, touched exact")
     q, pool, tables, lens = _pa_inputs(g, dev, torch.bfloat16, *main)
     args = (q, pool[:, 0], pool[:, 1], tables, lens)
-    ms = cuda_time(lambda: ops.paged_attention(*args), 200)
-    plain_ms = cuda_time(lambda: ref.paged_attention(*args), 20)
     # yardstick: SDPA over the same K/V, already gathered contiguous
     b, h, kv, d, bt, mb, _ = main
     safe = tables.clamp(min=0).long()
@@ -241,23 +290,63 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg):
     mask = (torch.arange(mb * bt, device=dev)[None] < lens[:, None]) \
         [:, None, None, :]
     qs = q[:, :, None, :]
-    lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
-        qs, k, v, attn_mask=mask), 200)
+    t = timings(lambda: ops.paged_attention(*args), 200,
+                lambda: ref.paged_attention(*args), 20,
+                lambda: F.scaled_dot_product_attention(qs, k, v,
+                                                       attn_mask=mask))
     tokens = int(lens.sum())
     bytes_moved = (q.numel() * 2 * 2 + tokens * kv * d * 2 * 2
                    + tables.numel() * 5 + b * 4)
     b_ms, b_by = bound(bytes_moved, 4 * h * d * tokens, "bf16")
-    log(f"paged_attention: {ms:.4f} ms (plain {plain_ms:.4f}, SDPA "
-        f"{lib_ms:.4f}, bound {b_ms:.5f} ms) at B={b} H={h} KV={kv} D={d} "
-        f"bt={bt} MB={mb}, {tokens} live tokens")
-    return dict(max_abs_err=main_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+    log(f"paged_attention: {_fmt(t)} (library: SDPA), bound {b_ms:.5f} ms "
+        f"at B={b} H={h} KV={kv} D={d} bt={bt} MB={mb}, {tokens} live "
+        f"tokens")
+    return dict(max_abs_err=main_err, bound_ms=b_ms, bound_by=b_by, **t,
                 shape=f"B={b} H={h} KV={kv} D={d} bt={bt} MB={mb} bf16")
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the serving path at full width and depth
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def watch_windows(srv):
+    """Stamps the start of each serve window (its one upload of inputs)
+    and counts the synchronising CUDA operations of the run (sync debug
+    mode "warn") by where each falls: inside window i (uploaded, not yet
+    dispatched), at window i's close (dispatched, lanes not yet scheduled),
+    or between windows."""
+    import torch
+    w = dict(starts=[], inside=collections.Counter(),
+             close=collections.Counter(), between=0)
+    upload = srv._upload
+
+    def stamped(host):
+        w["starts"].append(time.perf_counter())
+        return upload(host)
+
+    def on_warning(message, *args, **kwargs):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        n_up, n_disp = len(w["starts"]), srv.dispatches
+        if n_up == n_disp + 1:
+            w["inside"][n_up] += 1
+        elif n_up == n_disp == len(srv.serve_log) + 1:
+            w["close"][n_disp] += 1
+        else:
+            w["between"] += 1
+
+    srv._upload = stamped
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield w
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            del srv._upload
+
+
 def serve_full(dev):
     import torch
     from repro_torch.configs import get_config
@@ -284,7 +373,8 @@ def serve_full(dev):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    results = srv.serve(params, reqs)
+    with watch_windows(srv) as watch:
+        results = srv.serve(params, reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(ops.launches)
@@ -301,6 +391,11 @@ def serve_full(dev):
         f"RSS {peak_rss / 2**20:.1f} MiB, final {final_rss:.0f} B, peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"serve launches: {launches}")
+    close = [watch["close"][i] for i in range(1, windows + 1)]
+    log(f"serve syncs (CUDA sync debug mode): {sum(watch['inside'].values())}"
+        f" inside windows, {sum(close)} at the {windows} window closes "
+        f"(per window: {sorted(set(close))}), {watch['between']} between "
+        f"windows (the reset before the first)")
     if len(results) != N_REQUESTS or any(
             not r.tokens or r.finish_reason not in ("eos", "length")
             for r in results):
@@ -310,20 +405,134 @@ def serve_full(dev):
             raise AssertionError(f"{name} was not launched on the serve path")
     if moved <= 0:
         raise AssertionError("no rows migrated over the run")
-    if srv.dispatches != windows:
-        raise AssertionError(f"{srv.dispatches} dispatches for {windows} "
-                             "windows")
+    if watch["inside"]:
+        raise AssertionError(f"host syncs inside windows {watch['inside']}")
+    if close != [1] * windows:
+        raise AssertionError(f"syncs at the window closes: {close}, want "
+                             "exactly one per window")
     if final_rss != 0:
         raise AssertionError(f"KV RSS {final_rss} after the drain")
     summary = dict(requests=len(results), tokens=n_tok, seconds=dt,
                    tok_per_s=n_tok / dt, windows=windows, steps=steps,
                    ms_per_step=dt / steps * 1e3, rows_migrated=moved,
                    peak_kv_rss_bytes=peak_rss, layers=cfg.num_layers,
-                   params=n_params,
+                   params=n_params, syncs_inside_windows=0,
+                   syncs_per_window_close=1,
+                   syncs_between_windows=watch["between"],
                    peak_device_bytes=torch.cuda.max_memory_allocated())
+    summary["trace"] = trace_serve(srv, params, reqs, watch["starts"])
     del params, srv
     torch.cuda.empty_cache()
     return launches, summary, steps
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where the serve time goes
+# ---------------------------------------------------------------------------
+def _busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals (us)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def trace_serve(srv, params, reqs, starts):
+    """Serves the same requests again under torch.profiler from window
+    TRACE_FROM - 1 (which warms it up) to window TRACE_FROM + 3, marking
+    each window's start in the trace, and reads the events between the
+    starts of windows TRACE_FROM and TRACE_FROM + 2. Each window ends in a
+    sync, so all the device work of those two windows lies between the
+    marks. The device's busy share is the union of those device intervals
+    over the same two windows' wall time in the unprofiled run (`starts`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if len(starts) < TRACE_FROM + 4:
+        raise AssertionError(f"serve ran {len(starts)} windows, too few to "
+                             "trace")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    upload, n = srv._upload, [0]
+
+    def traced(host):
+        i = n[0]
+        n[0] += 1
+        if i == TRACE_FROM - 1:
+            prof.start()
+        elif i == TRACE_FROM + 3:
+            prof.stop()
+        if i in (TRACE_FROM, TRACE_FROM + 2):
+            with record_function(f"window_start_{i}"):
+                pass
+        return upload(host)
+    srv._upload = traced
+    try:
+        srv.serve(params, reqs)
+    finally:
+        del srv._upload
+    wall_us = (starts[TRACE_FROM + 2] - starts[TRACE_FROM]) * 1e6
+    cpu_t = torch.autograd.DeviceType.CPU
+    mark = {e.name: e.time_range.start for e in prof.events()
+            if e.device_type == cpu_t and e.name.startswith("window_start_")}
+    lo = mark[f"window_start_{TRACE_FROM}"]
+    hi = mark[f"window_start_{TRACE_FROM + 2}"]
+    events = [e for e in prof.events() if lo <= e.time_range.start < hi
+              and not e.name.startswith("window_start_")]
+    dev = [e for e in events if e.device_type != cpu_t]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us = _busy_us([(e.time_range.start, min(e.time_range.end, hi))
+                        for e in dev])
+    syncs = collections.Counter(
+        e.name for e in events if "Synchronize" in e.name
+        and e.device_type == cpu_t)
+    copies = collections.Counter(e.name for e in dev
+                                 if e.name.startswith("Memcpy"))
+    by_name = collections.defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    hades = {}
+    for kname, parts in HADES_KERNELS.items():
+        us = sum(v for k, v in by_name.items() if any(p in k for p in parts))
+        calls = sum(parts[0] in e.name for e in kernels)
+        hades[kname] = dict(launches=calls,
+                            device_ms_per_launch=us / 1e3 / max(calls, 1))
+    steps = 2 * srv.cfg.collect_every
+    if hades["paged_attention"]["launches"] != steps * srv.kv_cfg.num_layers:
+        raise AssertionError(f"the traced range holds {hades} launches, "
+                             f"not one paged_attention per layer of {steps} "
+                             "steps")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    res = dict(windows=[TRACE_FROM, TRACE_FROM + 1], steps=steps,
+               wall_ms_per_step=wall_us / 1e3 / steps,
+               device_busy_ms_per_step=busy_us / 1e3 / steps,
+               device_idle_share=1 - busy_us / wall_us,
+               kernels_per_step=len(kernels) / steps,
+               host_syncs_per_window={k: v / 2 for k, v in syncs.items()},
+               copies_per_window={k: v / 2 for k, v in copies.items()},
+               hades_kernels=hades,
+               top_kernels_ms_per_step={k[:120]: v / 1e3 / steps
+                                        for k, v in top})
+    log(f"serve trace (windows {TRACE_FROM}-{TRACE_FROM + 1}): "
+        f"{res['wall_ms_per_step']:.1f} ms/step unprofiled wall, device "
+        f"busy {res['device_busy_ms_per_step']:.2f} ms/step, idle share "
+        f"{res['device_idle_share']:.3f}, {res['kernels_per_step']:.0f} "
+        f"kernels per step, host syncs per window "
+        f"{res['host_syncs_per_window']}, copies per window "
+        f"{res['copies_per_window']}")
+    for kname, h in hades.items():
+        log(f"  {kname}: {h['launches']} launches, "
+            f"{h['device_ms_per_launch']:.5f} ms device per launch")
+    for k, v in top:
+        log(f"  {v / 1e3 / steps:9.4f} ms/step  {k[:100]}")
+    return res
 
 
 def _leaves(tree):
@@ -338,7 +547,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel path against plain path on the card
+# phase 6: kernel path against plain path on the card
 # ---------------------------------------------------------------------------
 def kernel_vs_plain(dev):
     import dataclasses
@@ -451,10 +660,10 @@ def main() -> int:
                      "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
                      "replaces": TPU_KERNEL[kname],
                      "launches": launches[kname],
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
+                     **{key: k[key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "device_ms",
+                         "plain_device_ms", "library_device_ms")}})
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({

@@ -87,8 +87,8 @@ constexpr int SMEM_HIST_MAX = 48 * 1024;
 
 extern "C" {
 
-// Zeroes hist and skipped on the stream, then launches the sweep.
-// Returns cudaGetLastError().
+// Zeroes hist and skipped on the stream, then launches the sweep; the
+// caller passes n > 0. Returns cudaGetLastError().
 int access_scan(const void* table, const float* ct, void* new_table,
                 unsigned char* to_hot, unsigned char* to_cold, int* hist,
                 int* skipped, int n, int sb_slots, int n_sbs, int with_hist,
@@ -96,7 +96,6 @@ int access_scan(const void* table, const float* ct, void* new_table,
   cudaStream_t s = (cudaStream_t)stream;
   cudaMemsetAsync(skipped, 0, sizeof(int), s);
   if (n_sbs > 0) cudaMemsetAsync(hist, 0, sizeof(int) * (size_t)n_sbs, s);
-  if (n == 0) return (int)cudaGetLastError();
   const size_t hist_bytes = sizeof(int) * (size_t)n_sbs;
   const int smem_hist = with_hist && hist_bytes <= SMEM_HIST_MAX;
   int blocks = (n + THREADS - 1) / THREADS;

@@ -143,13 +143,13 @@ size_t paged_attention_smem_bytes(int REP, int D, int BT) {
   return sizeof(float) * ((size_t)REP * D + 2 * (size_t)BT * D + (size_t)REP * BT);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+// dtype: 0 = float32, 1 = bfloat16. The caller passes B, KV > 0.
+// Returns cudaGetLastError() after the launch.
 int paged_attention(const void* q, const void* k, const void* v,
                     const int* tables, const int* lens, void* out,
                     unsigned char* touched, int B, int KV, int REP, int D,
                     int BT, int MB, int n_slots, long long slot_stride,
                     float scale, int dtype, void* stream) {
-  if (B == 0) return 0;
   const dim3 grid(B, KV);
   const dim3 block(32 * REP);
   const size_t smem = paged_attention_smem_bytes(REP, D, BT);

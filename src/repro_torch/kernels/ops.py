@@ -5,8 +5,9 @@ the CPU, and only then. For CUDA tensors it checks device, dtype, shape
 and contiguity, allocates outputs and scratch with `torch.empty`, launches
 its kernel on the current stream (building it at first use, see
 `build.py`), raises if the launch reports an error, and adds one to its
-count in `launches`. There is no fallback: a kernel that does not build or
-launch raises.
+count in `launches`. Empty inputs return before the C entry point, which
+therefore launches on every call. There is no fallback: a kernel that does
+not build or launch raises.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _launch(name: str, *args) -> None:
+    """Calls the C entry point `name`, which launches on every call (the
+    wrappers never pass it empty inputs), and counts the launch."""
     lib = build.lib(name)
     rc = getattr(lib, name)(*args)
     if rc != 0:
@@ -82,6 +85,8 @@ def migrate(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     _check(src.shape == dst.shape == ok.shape == (n,), "src/dst/ok: [n]")
     _check(src.is_contiguous() and dst.is_contiguous() and ok.is_contiguous(),
            "src/dst/ok must be contiguous")
+    if n == 0 or data.numel() == 0:
+        return data
     staging = torch.empty((n, data.shape[1]), dtype=data.dtype,
                           device=data.device)
     _launch("migrate", data.data_ptr(), staging.data_ptr(), src.data_ptr(),
@@ -110,6 +115,11 @@ def access_scan(table: torch.Tensor, ciw_threshold: torch.Tensor, *,
     _check(sb_slots > 0 and n_sbs >= 0, "sb_slots > 0, n_sbs >= 0")
     n = table.shape[0]
     dev = table.device
+    if n == 0:
+        return (table.clone(), torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(n_sbs, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
     new_table = torch.empty_like(table)
     to_hot = torch.empty(n, dtype=torch.bool, device=dev)
     to_cold = torch.empty(n, dtype=torch.bool, device=dev)
@@ -165,6 +175,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check(smem <= _SMEM_LIMIT, f"tiles need {smem} B of shared memory")
     out = torch.empty_like(q)
     touched = torch.empty((b, mb), dtype=torch.bool, device=q.device)
+    if b == 0 or kv == 0:
+        return out, touched
     _launch("paged_attention", q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             out.data_ptr(), touched.data_ptr(),

@@ -1,2 +1,1 @@
-"""Launchers of the port: `serve` (the serving CLI) and `profile_serve`
-(a device trace of decode windows)."""
+"""Launchers of the port: `serve`, the serving CLI."""

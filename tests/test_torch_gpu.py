@@ -91,6 +91,28 @@ def test_migrate_kernel_matches_plain(cuda, n_rows, w, dtype):
     assert not got[-1].any()
 
 
+@pytest.mark.gpu
+def test_empty_inputs_launch_nothing(cuda):
+    """A wrapper given nothing to do returns the plain version's result and
+    counts no launch."""
+    before = dict(tops.launches)
+    data = torch.ones((5, 8), device=cuda)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = tops.migrate(data, none, none, none.bool())
+    assert torch.equal(got, torch.ones_like(data))
+    ct = torch.tensor(2.0, device=cuda)
+    for x, y in zip(tops.access_scan(none, ct, sb_slots=4, n_sbs=3),
+                    tref.access_scan(none, ct, sb_slots=4, n_sbs=3)):
+        assert torch.equal(x, y)
+    q = torch.zeros((0, 8, 16), device=cuda)
+    pages = torch.zeros((4, 4, 2, 16), device=cuda)
+    tables = torch.zeros((0, 3), dtype=torch.int32, device=cuda)
+    out, touched = tops.paged_attention(q, pages, pages, tables,
+                                        none[:0])
+    assert out.shape == (0, 8, 16) and touched.shape == (0, 3)
+    assert tops.launches == before
+
+
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
