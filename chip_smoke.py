@@ -445,13 +445,16 @@ def _busy_us(intervals) -> float:
 
 
 def trace_serve(srv, params, reqs, starts):
-    """Serves the same requests again under torch.profiler from window
-    TRACE_FROM - 1 (which warms it up) to window TRACE_FROM + 3, marking
-    each window's start in the trace, and reads the events between the
-    starts of windows TRACE_FROM and TRACE_FROM + 2. Each window ends in a
-    sync, so all the device work of those two windows lies between the
-    marks. The device's busy share is the union of those device intervals
-    over the same two windows' wall time in the unprofiled run (`starts`)."""
+    """Serves the same requests again under torch.profiler over windows
+    TRACE_FROM - 1 (which warms it up) to TRACE_FROM + 2, and reads windows
+    TRACE_FROM and TRACE_FROM + 1. Host events are taken between the marks
+    set at those windows' starts; device events on the device's own clock,
+    between the device-to-host copies that close windows TRACE_FROM - 1
+    and TRACE_FROM + 1 (each window's one sync), since the profiler's host
+    and device clocks are not aligned closely enough to cut the device
+    timeline at a host mark. The device's busy share is the union of those
+    device intervals over the same two windows' wall time in the
+    unprofiled run (`starts`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     if len(starts) < TRACE_FROM + 4:
@@ -482,17 +485,25 @@ def trace_serve(srv, params, reqs, starts):
             if e.device_type == cpu_t and e.name.startswith("window_start_")}
     lo = mark[f"window_start_{TRACE_FROM}"]
     hi = mark[f"window_start_{TRACE_FROM + 2}"]
-    events = [e for e in prof.events() if lo <= e.time_range.start < hi
-              and not e.name.startswith("window_start_")]
-    dev = [e for e in events if e.device_type != cpu_t]
+    host_ev = [e for e in prof.events() if e.device_type == cpu_t
+               and lo <= e.time_range.start < hi]
+    closes = sorted((e.time_range for e in prof.events()
+                     if e.device_type != cpu_t
+                     and e.name.startswith("Memcpy DtoH")),
+                    key=lambda r: r.start)
+    if len(closes) != 4:
+        raise AssertionError(f"{len(closes)} device-to-host copies in the "
+                             "4 traced windows, want one per window")
+    d_lo, d_hi = closes[0].end, closes[2].end
+    dev = [e for e in prof.events() if e.device_type != cpu_t
+           and d_lo <= e.time_range.start < d_hi]
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
     if not kernels:
         raise AssertionError("the profiler recorded no device activity")
-    busy_us = _busy_us([(e.time_range.start, min(e.time_range.end, hi))
+    busy_us = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in dev])
-    syncs = collections.Counter(
-        e.name for e in events if "Synchronize" in e.name
-        and e.device_type == cpu_t)
+    syncs = collections.Counter(e.name for e in host_ev
+                                if "Synchronize" in e.name)
     copies = collections.Counter(e.name for e in dev
                                  if e.name.startswith("Memcpy"))
     by_name = collections.defaultdict(float)
