@@ -7,32 +7,46 @@ Run from the root of a checkout (it puts `src` on sys.path itself). In
 order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
-  2. build: every CUDA kernel of the serving path (`src/repro_torch/kernels/
+  2. build: every CUDA kernel of the port (`src/repro_torch/kernels/
      csrc/*.cu`) with nvcc for sm_90a, one nvcc per source, in parallel;
      ptxas's register / shared-memory / spill lines are printed;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it and at the CPU tests' shapes
-     (access_scan and migrate exactly, paged_attention within 2e-2 in
-     bf16 and 2e-5 in fp32, its access bits exactly), then timed beside
-     its plain version, a one-call PyTorch yardstick where one exists, and
-     the least time the card could take (bound_ms): per call over
-     back-to-back calls with CUDA events (`ms`, `plain_ms`, `library_ms`)
-     and as device time from a torch.profiler trace (`device_ms`, ...);
+     shapes its path gives it and at the CPU tests' shapes (access_scan
+     and migrate exactly, paged_attention and flash_attention within 2e-2
+     in bf16 and 2e-5 in fp32, paged_attention's access bits exactly),
+     then timed beside its plain version, a one-call PyTorch yardstick
+     where one exists, and the least time the card could take (bound_ms),
+     at the shape of its path: per call over back-to-back calls with CUDA
+     events (`ms`, `plain_ms`, `library_ms`) and as device time from a
+     torch.profiler trace (`device_ms`, ...);
   4. the serving path: `Server.serve` with chatglm3-6b at its full
      published width and depth (28 layers, random bf16 weights from a
      seeded generator), 8 lanes, max_len 512, 16-token blocks, 16 greedy
      requests; every kernel's launch count is reset just before and read
-     just after, and the run must complete every request, launch every
-     kernel, migrate rows and end with KV RSS 0. CUDA's sync debug mode
-     counts the synchronising operations of the run: none may fall inside
-     a window and exactly one at each window's close;
+     just after, and the run must complete every request, launch each of
+     the three HADES kernels (and flash_attention never), migrate rows and
+     end with KV RSS 0. CUDA's sync debug mode counts the synchronising
+     operations of the run: none may fall inside a window and exactly one
+     at each window's close;
   5. where the serve time goes: the same requests served again with
      torch.profiler on for two windows in mid-run; the device's busy and
      idle share of those windows' unprofiled wall time (from phase 4),
      kernels per step, host syncs and copies per window, and each HADES
      kernel's device time per launch;
   6. the kernel path against the plain path on the card at 2 layers and
-     full width, teacher-forced: pool metadata exactly, logits within 5e-2.
+     full width: a teacher-forced serve window (pool metadata exactly,
+     logits within 5e-2), and a prefill of B=2 x S=4096 with
+     attn_impl="flash" against "blockwise" on the same weights (float32
+     logits within 5e-2; bfloat16 logits within two bf16 ulps of the
+     largest logit, see `prefill_flash_vs_blockwise`);
+  7. the prefill path: `Model.prefill` with chatglm3-6b at full width and
+     depth (attn_impl="flash", random bf16 weights from a seeded
+     generator) on B=2 prompts of S=4096 tokens; the launch counts are
+     reset just before the first prefill and read just after it: exactly
+     28 flash_attention launches (one per layer) and no HADES kernel; the
+     logits [2, 4096, 65024] fp32 must be finite. Then ms per prefill and
+     prefill tokens/s (median of 3), flash_attention's share of the device
+     time in one profiled prefill, and the peak device memory.
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
 is not run from a checkout, or if any phase fails. The last lines of its
@@ -59,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int32": 67e12}
 SERVE = dict(batch=8, max_len=512, block_tokens=16, collect_every=8)
 N_REQUESTS, MAX_NEW = 16, 32
+PREFILL_B, PREFILL_S = 2, 4096   # cut from prefill_32k (B=32, S=32768)
 TRACE_FROM = 6     # first of the two traced serve windows; lanes are full
 HADES_KERNELS = {"paged_attention": ("paged_attention_kernel",),
                  "access_scan": ("access_scan_kernel",),
@@ -67,10 +82,13 @@ TPU_KERNEL = {
     "paged_attention": "src/repro/kernels/paged_attention.py:74",
     "access_scan": "src/repro/kernels/access_scan.py:88",
     "migrate": "src/repro/kernels/migrate.py:38",
+    "flash_attention": "src/repro/kernels/flash_attention.py:65",
 }
 LIBRARY = {
     "paged_attention": "torch.nn.functional.scaled_dot_product_attention",
-    "migrate": "data[dst] = data[src]", "access_scan": None}
+    "migrate": "data[dst] = data[src]", "access_scan": None,
+    "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True)"}
 
 
 def log(*a):
@@ -305,6 +323,58 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg):
                 shape=f"B={b} H={h} KV={kv} D={d} bt={bt} MB={mb} bf16")
 
 
+# the CPU tests' sweep (tests/test_kernels.py): (b, s, h, kv, d) x masks
+FLASH_SWEEP = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 16)]
+FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
+
+
+def check_flash_attention(dev, mc):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(b, s, h, kv, d, dtype):
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    main = (PREFILL_B, PREFILL_S, mc.num_heads, mc.num_kv_heads,
+            mc.resolved_head_dim)
+    cases = [(shape, causal, window, dtype)
+             for shape in FLASH_SWEEP for causal, window in FLASH_MASKS
+             for dtype in tols]
+    cases += [(main, True, 0, torch.bfloat16), (main, True, 0, torch.float32)]
+    worst = {}
+    for shape, causal, window, dtype in cases:
+        q, k, v = inputs(*shape, dtype)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err < tols[dtype]:
+            raise AssertionError(f"flash_attention {shape} causal={causal} "
+                                 f"window={window} {dtype}: err {err}")
+        key = ("prefill" if shape == main else "sweep", str(dtype)[6:])
+        worst[key] = max(worst.get(key, 0.0), err)
+    log(f"flash_attention: {len(cases)} cases within 2e-5 (fp32) / 2e-2 "
+        f"(bf16); max |err| {worst}")
+    q, k, v = inputs(*main, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = timings(lambda: ops.flash_attention(q, k, v), 10,
+                lambda: ref.flash_attention(q, k, v), 3,
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+    b, s, h, kv, d = main
+    b_ms, b_by = bound(b * s * (2 * h + 2 * kv) * d * 2,
+                       2 * b * h * d * s * (s + 1), "bf16")
+    log(f"flash_attention: {_fmt(t)} (library: SDPA), bound {b_ms:.5f} ms "
+        f"({b_by}) at B={b} S={s} H={h} KV={kv} D={d} bf16 causal")
+    return dict(max_abs_err=worst[("prefill", "bfloat16")], bound_ms=b_ms,
+                bound_by=b_by, **t,
+                shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16 causal")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path at full width and depth
 # ---------------------------------------------------------------------------
@@ -400,9 +470,11 @@ def serve_full(dev):
             not r.tokens or r.finish_reason not in ("eos", "length")
             for r in results):
         raise AssertionError("not every request completed")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in HADES_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the serve path")
+    if launches["flash_attention"]:
+        raise AssertionError("flash_attention launched on the serve path")
     if moved <= 0:
         raise AssertionError("no rows migrated over the run")
     if watch["inside"]:
@@ -619,6 +691,152 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _prompts(cfg, dev, seed):
+    import torch
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def prefill_flash_vs_blockwise(dev):
+    """attn_impl="flash" (the kernel) against "blockwise" (plain PyTorch)
+    on the same weights and prompts, 2 layers at full width, in float32
+    (fp32 products: TF32 off) and in the model's bfloat16. The float32
+    logits must agree within 5e-2. In bfloat16 the two attentions' fp32
+    sums round to bf16 outputs one ulp apart here and there, the gap
+    carries through the layers, and the logits come out of a bf16 product
+    rounded to 8 significant bits, so the largest of 2 x 4096 x 65024
+    logits (|x| near 8, where one ulp is 0.0625) can differ by more than
+    5e-2 without a fault: there the logits must agree within two bf16
+    ulps of the largest logit (2**-6 * max|x|), the bound the CPU tests
+    use for bf16 caches and hiddens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(layers=2, batch=PREFILL_B, seq_len=PREFILL_S)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("chatglm3-6b"), num_layers=2,
+                                  dtype=dtype)
+        flash = Model(cfg, attn_impl="flash", device="cuda")
+        blockwise = Model(cfg, attn_impl="blockwise", device="cuda")
+        params = flash.init(torch.Generator(device=dev).manual_seed(2))
+        batch = _prompts(cfg, dev, seed=1)
+        with torch.inference_mode():
+            n0 = ops.launches["flash_attention"]
+            lf = flash.prefill(params, batch)
+            lb = blockwise.prefill(params, batch)
+            torch.cuda.synchronize()
+            n = ops.launches["flash_attention"] - n0
+            diff = (lf - lb).abs()
+            err = diff.max().item()
+            over = int((diff >= 5e-2).sum())
+            top = lb.abs().max().item()
+        del params, lf, lb, diff
+        tol = 5e-2 if dtype == "float32" else 2 ** -6 * top
+        log(f"prefill flash vs blockwise ({dtype}, 2 layers, full width, "
+            f"B={PREFILL_B} S={PREFILL_S}): logits max |err| {err:.3g} "
+            f"(< {tol:.3g}), {over} logits >= 5e-2 apart, max |logit| "
+            f"{top:.3g}; {n} flash_attention launches")
+        if n != cfg.num_layers:
+            raise AssertionError(f"{n} flash_attention launches in a 2-layer "
+                                 "prefill")
+        if not err < tol:
+            raise AssertionError(f"{dtype} prefill logits differ by {err}")
+        out[dtype] = dict(logits_max_abs_err=err, limit=tol,
+                          logits_over_5e_2=over, max_abs_logit=top)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the prefill path at full width and depth
+# ---------------------------------------------------------------------------
+def prefill_full(dev):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    cfg = get_config("chatglm3-6b")
+    model = Model(cfg, attn_impl="flash", device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = _prompts(cfg, dev, seed=0)
+    n_tok = PREFILL_B * PREFILL_S
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ops.reset_launches()
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        shape = tuple(logits.shape)
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        log(f"prefill launches: {launches}")
+        if launches["flash_attention"] != cfg.num_layers or any(
+                launches[k] for k in HADES_KERNELS):
+            raise AssertionError(f"prefill launches {launches}: want "
+                                 f"{cfg.num_layers} flash_attention, no "
+                                 "HADES kernel")
+        if shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or not finite:
+            raise AssertionError(f"prefill logits {shape}, finite {finite}")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, batch)
+            torch.cuda.synchronize()
+    wall = float(np.median(walls))
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_ev:
+        raise AssertionError("the profiler recorded no device activity")
+    total_us = sum(e.time_range.elapsed_us() for e in dev_ev)
+    flash = [e for e in dev_ev if "flash_attention_kernel" in e.name]
+    flash_us = sum(e.time_range.elapsed_us() for e in flash)
+    busy_us = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in dev_ev])
+    by_name = collections.defaultdict(float)
+    for e in dev_ev:
+        by_name[e.name[:100]] += e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(layers=cfg.num_layers, batch=PREFILL_B, seq_len=PREFILL_S,
+               ms_per_prefill=wall * 1e3, prefill_ms_runs=[w * 1e3
+                                                           for w in walls],
+               tok_per_s=n_tok / wall,
+               device_ms_per_prefill=total_us / 1e3,
+               device_busy_ms=busy_us / 1e3,
+               device_idle_share=1 - busy_us / 1e3 / (wall * 1e3),
+               flash_launches_profiled=len(flash),
+               flash_device_ms=flash_us / 1e3,
+               flash_device_share=flash_us / total_us,
+               launches=launches, top_kernels_ms=dict(top),
+               kernels_per_prefill=len(dev_ev),
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    log(f"prefill: chatglm3-6b {cfg.num_layers} layers, B={PREFILL_B} x "
+        f"S={PREFILL_S}: {res['ms_per_prefill']:.1f} ms per prefill "
+        f"(runs {[round(w * 1e3, 1) for w in walls]}), "
+        f"{res['tok_per_s']:.0f} tok/s; profiled: device {total_us / 1e3:.1f}"
+        f" ms, busy {busy_us / 1e3:.1f} ms (idle share "
+        f"{res['device_idle_share']:.5f} of the unprofiled wall), "
+        f"flash_attention {len(flash)} launches {flash_us / 1e3:.1f} ms = "
+        f"{res['flash_device_share']:.3f} of device time; peak device memory "
+        f"{res['peak_device_bytes'] / 2**30:.2f} GiB; {len(dev_ev)} device "
+        "kernels and copies")
+    for k, v in top:
+        log(f"  {v:9.3f} ms  {k}")
+    del params
+    torch.cuda.empty_cache()
+    return launches, res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -661,16 +879,22 @@ def main() -> int:
         "paged_attention": check_paged_attention(dev, mc, kv_cfg, pcfg),
         "access_scan": check_access_scan(dev, pcfg),
         "migrate": check_migrate(dev, pcfg, CollectorConfig().move_budget),
+        "flash_attention": check_flash_attention(dev, mc),
     }
     launches, serve_summary, steps = serve_full(dev)
     path = kernel_vs_plain(dev)
+    path["prefill"] = prefill_flash_vs_blockwise(dev)
+    prefill_launches, prefill_summary = prefill_full(dev)
+    # each kernel's launches on the path that runs it, counted from 0
+    main_launches = {k: launches[k] for k in HADES_KERNELS}
+    main_launches["flash_attention"] = prefill_launches["flash_attention"]
 
     rows = []
     for kname, k in kernels.items():
         rows.append({"name": kname, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
                      "replaces": TPU_KERNEL[kname],
-                     "launches": launches[kname],
+                     "launches": main_launches[kname],
                      **{key: k[key] for key in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "device_ms",
@@ -681,8 +905,8 @@ def main() -> int:
         "device": name, "nvidia_smi": smi, "kernels": rows,
         "kernel_shapes": {k: v["shape"] for k, v in kernels.items()},
         "library_calls": LIBRARY, "serve": serve_summary,
-        "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "kernel_vs_plain": path,
+        "launches_per_step": {k: launches[k] / steps for k in HADES_KERNELS},
+        "prefill": prefill_summary, "kernel_vs_plain": path,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

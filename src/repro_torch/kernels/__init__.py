@@ -5,4 +5,5 @@
   paged_attention  decode through the object table, fused access bits
   access_scan      collector table sweep (CIW update, Fig. 5 masks)
   migrate          Object Collector data mover (gather, then scatter)
+  flash_attention  full-sequence causal / sliding-window attention (prefill)
 """

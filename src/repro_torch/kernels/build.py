@@ -20,7 +20,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "access_scan", "migrate")
+SOURCES = ("paged_attention", "access_scan", "migrate", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,6 +31,9 @@ _ARGTYPES = {
                         _I, ctypes.c_longlong, ctypes.c_float, _I, _P),
     "access_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "migrate": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I,
+                        _I, _I, _P),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -11,6 +11,7 @@ not build or launch raises.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, Tuple
 
@@ -21,6 +22,8 @@ from repro_torch.kernels import ref
 
 # launches of each kernel since the last reset (the main path's evidence)
 launches: Dict[str, int] = {name: 0 for name in build.SOURCES}
+# dtype codes of the attention kernels' C entry points
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -136,7 +139,6 @@ def access_scan(table: torch.Tensor, ciw_threshold: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # paged_attention
 # ---------------------------------------------------------------------------
-_PA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 48 * 1024
 
 
@@ -158,7 +160,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
            "k_pages/v_pages: [n_slots, bt, KV, D]")
     n_slots, bt, kv, d2 = k_pages.shape
     _check(d2 == d and h % kv == 0, "head dims disagree or H % KV != 0")
-    _check(q.dtype in _PA_DTYPES and k_pages.dtype == v_pages.dtype == q.dtype,
+    _check(q.dtype in _DTYPES and k_pages.dtype == v_pages.dtype == q.dtype,
            "q/k/v must share one dtype, float32 or bfloat16")
     inner = (kv * d, d, 1)
     _check(k_pages.stride()[1:] == inner and v_pages.stride()[1:] == inner
@@ -181,5 +183,42 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             out.data_ptr(), touched.data_ptr(),
             b, kv, rep, d, bt, mb, n_slots, k_pages.stride(0), d ** -0.5,
-            _PA_DTYPES[q.dtype], _stream())
+            _DTYPES[q.dtype], _stream())
     return out, touched
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B, S, H, D]; k/v: [B, S, KV, D] -> [B, S, H, D] in q's dtype.
+    Each may be a strided view with unit stride along D (the kernel reads
+    them where they lie: no GQA repeat, transpose or padding). The TPU
+    kernel's shape contract holds on every device: S <= 128 or S a
+    multiple of 128 (its query block is min(128, S) and must divide S)."""
+    _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+           "q: [B, S, H, D]; k/v: [B, S, KV, D]")
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    _check(k.shape[:2] == (b, s) and k.shape[3] == d,
+           "q and k/v disagree in batch, length or head dim")
+    _check(kv > 0 and h % kv == 0, "H must be a multiple of KV")
+    _check(s <= 128 or s % 128 == 0,
+           f"S={s}: the flash kernel takes S <= 128 or a multiple of 128")
+    if _on_cpu(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    _check(q.dtype in _DTYPES and k.dtype == v.dtype == q.dtype,
+           "q/k/v must share one dtype, float32 or bfloat16")
+    _check(q.stride(3) == k.stride(3) == v.stride(3) == 1,
+           "q/k/v need unit stride along D")
+    _check(d <= 256, "the kernel takes D <= 256")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, h, kv, d, strides, d ** -0.5, int(causal),
+            window, _DTYPES[q.dtype], _stream())
+    return out

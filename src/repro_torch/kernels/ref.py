@@ -94,3 +94,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     touched = (torch.arange(mb, device=q.device)[None] * bt
                < seq_lens[:, None]) & (block_tables >= 0)
     return out[:, 0].to(q.dtype), touched
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Self-attention over full sequences, in fp32 as the kernels (TPU and
+    CUDA) compute it. q: [B, S, H, D]; k/v: [B, S, KV, D]; query head h
+    reads KV head h // (H / KV). q is scaled by D**-0.5 before the product;
+    softmax and P.V run in fp32; the output [B, S, H, D] is cast to q's
+    dtype. The mask is built from the absolute positions i, j in [0, S)
+    (causal: j <= i; window > 0: j > i - window), never from explicit
+    positions, like the TPU kernel's iota mask."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, d) * d ** -0.5
+    scores = torch.einsum("bskrd,btkd->bkrst", qg, k.float())
+    pos = torch.arange(s, device=q.device)
+    bias = attn_lib._mask_bias(pos[None], pos[None], causal, window)[0]
+    probs = torch.softmax(scores + bias, dim=-1)
+    out = torch.einsum("bkrst,btkd->bskrd", probs, v.float())
+    return out.reshape(b, s, h, d).to(q.dtype)

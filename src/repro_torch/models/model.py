@@ -1,10 +1,11 @@
 """Public model facade of the port (counterpart of `repro/models/model.py`
-for the dense decoder): the config, the device the weights live on, and a
-seeded random init.
+for the dense decoder): the config, the device the weights live on, a
+seeded random init, and the step functions on the JAX package's batch
+dicts ({"tokens"} for forward / prefill, {"tokens", "labels"} for loss).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,8 +27,17 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, device: Optional[str] = None):
+    """attn_impl: "full", "blockwise" or "flash" (the flash_attention
+    kernel) for the full-sequence paths; remat takes only "none" here."""
+
+    def __init__(self, cfg: ModelConfig, attn_impl: str = "blockwise",
+                 remat: str = "none", device: Optional[str] = None):
+        if attn_impl not in T.ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in "
+                             f"{T.ATTN_IMPLS}")
         self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.remat = remat
         self.device = resolve_device(device)
 
     def init(self, generator: torch.Generator) -> dict:
@@ -35,8 +45,28 @@ class Model:
         self.device), at the JAX package's shapes and scales."""
         return T.init_lm(self.cfg, generator, self.device)
 
+    def forward(self, params, batch: Dict) -> Tuple[torch.Tensor, dict]:
+        return T.lm_forward(params, self.cfg, batch["tokens"],
+                            extra_embeds=batch.get("extra_embeds"),
+                            enc_embeds=batch.get("enc_embeds"),
+                            attn_impl=self.attn_impl, remat=self.remat)
 
-def build(arch_id: str, reduced: bool = False,
-          device: Optional[str] = None) -> Model:
+    def loss(self, params, batch: Dict) -> Tuple[torch.Tensor, dict]:
+        return T.lm_loss(params, self.cfg, batch["tokens"], batch["labels"],
+                         extra_embeds=batch.get("extra_embeds"),
+                         enc_embeds=batch.get("enc_embeds"),
+                         attn_impl=self.attn_impl, remat=self.remat)
+
+    def prefill(self, params, batch: Dict) -> torch.Tensor:
+        return self.forward(params, batch)[0]
+
+    def init_decode_state(self, batch: int, max_len: int) -> dict:
+        return T.init_decode_state(self.cfg, batch, max_len, self.device)
+
+    def decode_step(self, params, state, tokens, **kw):
+        return T.lm_decode_step(params, self.cfg, state, tokens, **kw)
+
+
+def build(arch_id: str, reduced: bool = False, **kw) -> Model:
     from repro_torch.configs import get_config
-    return Model(get_config(arch_id, reduced=reduced), device=device)
+    return Model(get_config(arch_id, reduced=reduced), **kw)

@@ -1,6 +1,8 @@
-"""The dense decoder's layer math (port of `init_attn_layer`, `_qkv`,
-`decode_layer_step` and the dense branch of `init_lm` in
-`repro/models/transformer.py`).
+"""The dense decoder (port of the dense branch of
+`repro/models/transformer.py`): init, the full-sequence forward and loss
+(`attn_ffn_block`, `lm_forward`, `lm_loss`), and single-token decode over
+a dense ring cache (`decode_layer_step`, `attn_block_decode`,
+`init_decode_state`, `lm_decode_step`).
 
 Parameters are a plain dict: {"embed" [V, D], "final_ln" [D], "out" [D, V]
 (absent with tied embeddings), "layers": [one dict per layer]}. The JAX
@@ -9,11 +11,15 @@ list, since its layers run as a Python loop (`convert.py` unstacks).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+
+ATTN_IMPLS = ("full", "blockwise", "flash")
 
 
 def _normal(shape, scale: float, dtype, generator, device) -> torch.Tensor:
@@ -44,11 +50,15 @@ def init_attn_layer(cfg, dtype, generator, device) -> dict:
     }
 
 
+def _check_dense(cfg) -> None:
+    if cfg.family != "dense" or cfg.block_pattern or cfg.is_encoder_decoder:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+
+
 def init_lm(cfg, generator: torch.Generator, device) -> dict:
     """Random weights for a dense decoder, at the JAX package's shapes and
     scales (the values differ: torch's generator is not JAX's)."""
-    if cfg.family != "dense" or cfg.block_pattern or cfg.is_encoder_decoder:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    _check_dense(cfg)
     dtype = getattr(torch, cfg.dtype)
     params = {
         "embed": _normal((cfg.vocab_size, cfg.d_model), 0.02, dtype,
@@ -86,3 +96,160 @@ def decode_layer_step(p: dict, x: torch.Tensor, cfg, positions, attend_fn):
     x = x + o.reshape(b, 1, -1) @ p["wo"]
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.mlp(p["ffn"], h2, cfg.mlp_gated), aux
+
+
+def attn_ffn_block(p: dict, x: torch.Tensor, cfg, positions, *,
+                   attn_impl: str = "blockwise"):
+    """Full-sequence causal block. x: [B, S, D]; positions: [B, S] (or
+    mrope's [3, B, S]). Returns (x', (k, v)). `flash` runs the
+    flash_attention kernel, whose mask ignores `positions`, as the TPU
+    kernel's does."""
+    b, s, _ = x.shape
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg, positions)
+    pos = _pos2d(positions)
+    kwargs = dict(causal=True, window=cfg.sliding_window, q_pos=pos,
+                  k_pos=pos)
+    if attn_impl == "full":
+        o = attn_lib.full_attention(q, k, v, **kwargs)
+    elif attn_impl == "blockwise":
+        o = attn_lib.blockwise_attention(q, k, v, chunk=min(512, s),
+                                         **kwargs)
+    elif attn_impl == "flash":
+        o = kops.flash_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window)
+    else:
+        raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+    x = x + o.reshape(b, s, -1) @ p["wo"]
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(p["ffn"], h2, cfg.mlp_gated), (k, v)
+
+
+def _pos2d(positions):
+    """Reduce mrope [3, B, S] to the primary stream for masking."""
+    if positions is None:
+        return None
+    return positions[0] if positions.dim() == 3 else positions
+
+
+def _check_forward(cfg, remat: str, extra_embeds, enc_embeds) -> None:
+    _check_dense(cfg)
+    if extra_embeds is not None or enc_embeds is not None:
+        raise NotImplementedError("extra_embeds / enc_embeds (vlm, "
+                                  "encoder-decoder) are not ported")
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r}: rematerialisation belongs to the training "
+            "slice, not ported yet; the forward path takes 'none'")
+
+
+def _head(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    out_t = params["embed"].T if cfg.tie_embeddings else params["out"]
+    return L.logits_head(out_t, x)
+
+
+def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
+               positions: Optional[torch.Tensor] = None,
+               extra_embeds=None, enc_embeds=None,
+               attn_impl: str = "blockwise", remat: str = "none",
+               return_cache: bool = False, return_hiddens: bool = False):
+    """tokens: [B, S] -> (logits [B, S, V] fp32, aux). The layers run as a
+    Python loop over params["layers"]. `return_cache` puts "kv_cache" =
+    (k, v), each [L, B, S, KV, Dh] after rotary, in aux; `return_hiddens`
+    puts "hiddens" [L, B, S, D], the post-layer residual stream. (The
+    dense family has no MoE auxiliary loss or expert counts.)"""
+    _check_forward(cfg, remat, extra_embeds, enc_embeds)
+    x = L.embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    kvs, hs = [], []
+    for lp in params["layers"]:
+        x, kv = attn_ffn_block(lp, x, cfg, positions, attn_impl=attn_impl)
+        if return_cache:
+            kvs.append(kv)
+        if return_hiddens:
+            hs.append(x)
+    aux = {}
+    if return_cache:
+        aux["kv_cache"] = (torch.stack([k for k, _ in kvs]),
+                           torch.stack([v for _, v in kvs]))
+    if return_hiddens:
+        aux["hiddens"] = torch.stack(hs)
+    return _head(params, cfg, x), aux
+
+
+def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
+            *, extra_embeds=None, enc_embeds=None,
+            attn_impl: str = "blockwise", remat: str = "none"):
+    """Next-token cross entropy (mean over labels != -100)."""
+    logits, aux = lm_forward(params, cfg, tokens, extra_embeds=extra_embeds,
+                             enc_embeds=enc_embeds, attn_impl=attn_impl,
+                             remat=remat)
+    mask = labels != -100
+    safe = torch.where(mask, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1), aux
+
+
+def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:
+    """Dense (non-paged) decode state: {"pos": int, "kv": {"k", "v":
+    [L, B, C, KV, Dh], "k_pos": [L, B, C] int32 (-1 empty)}}. C is max_len,
+    clipped to the sliding window for windowed configs (ring buffer)."""
+    _check_dense(cfg)
+    hd = cfg.resolved_head_dim
+    c = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (cfg.num_layers, batch, c, cfg.num_kv_heads, hd)
+    dtype = getattr(torch, cfg.dtype)
+    return {"pos": 0, "kv": {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k_pos": torch.full(shape[:3], -1, dtype=torch.int32,
+                            device=device)}}
+
+
+def attn_block_decode(p: dict, x: torch.Tensor, cfg, cache: dict, pos: int):
+    """x: [B, 1, D]; cache: one layer's {"k", "v": [B, C, KV, Dh], "k_pos":
+    [B, C]}, UPDATED IN PLACE: the token goes to slot pos % C (a ring for
+    sliding windows, linear otherwise), then attends. Returns x'."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    c = cache["k"].shape[1]
+
+    def attend(q, k, v):
+        slot = pos % c
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["k_pos"][:, slot] = pos
+        o = attn_lib.decode_attention(q, cache["k"], cache["v"],
+                                      min(pos + 1, c),
+                                      window=cfg.sliding_window,
+                                      k_pos=cache["k_pos"], q_pos=pos)
+        return o, None
+
+    return decode_layer_step(p, x, cfg, positions, attend)[0]
+
+
+def lm_decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor, *,
+                   return_hiddens: bool = False):
+    """tokens: [B] -> (logits [B, V], state), one token per sequence. The
+    caches in `state` are updated in place (the JAX package returns new
+    ones); the returned state carries pos + 1. `return_hiddens` appends the
+    post-layer residual stream [L, B, 1, D]."""
+    _check_dense(cfg)
+    x = L.embed(params["embed"], tokens)[:, None, :]
+    pos = state["pos"]
+    kv = state["kv"]
+    hs = []
+    for i, lp in enumerate(params["layers"]):
+        x = attn_block_decode(lp, x, cfg, {n: t[i] for n, t in kv.items()},
+                              pos)
+        if return_hiddens:
+            hs.append(x)
+    logits = _head(params, cfg, x)[:, 0]
+    state = dict(state, pos=pos + 1)
+    if return_hiddens:
+        return logits, state, torch.stack(hs)
+    return logits, state

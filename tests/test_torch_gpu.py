@@ -14,6 +14,15 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 PA_SHAPES = [(2, 8, 2, 16, 4, 6), (3, 4, 4, 32, 8, 4), (1, 8, 1, 64, 16, 3)]
+# flash_attention: tests/test_kernels.py's sweep (b, s, h, kv, d)
+FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 16)]
+FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
+
+
+def _flash_inputs(b, s, h, kv, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
 
 
 def _pa_inputs(b, h, kv, d, bt, mb, seed, n_slots=32):
@@ -113,6 +122,59 @@ def test_empty_inputs_launch_nothing(cuda):
     assert tops.launches == before
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d", FLASH_SHAPES + [
+    (1, 512, 32, 2, 128), (2, 384, 6, 3, 96), (1, 100, 4, 2, 256)])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS + [(False, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kv, d, causal,
+                                              window, dtype):
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype)
+               for x in _flash_inputs(b, s, h, kv, d, seed=s + d))
+    n0 = tops.launches["flash_attention"]
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    want = tref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tops.launches["flash_attention"] == n0 + 1
+    assert got.dtype == dtype and got.shape == (b, s, h, d)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.gpu
+def test_flash_attention_edge_cases(cuda):
+    """Empty input counts no launch; S=200 raises before dispatch; q as a
+    strided view of a fused projection (unit stride along D) is taken and
+    matches the plain version, and a view without unit stride along D is
+    refused with ValueError."""
+    n0 = tops.launches["flash_attention"]
+    empty = torch.zeros((0, 128, 4, 16), device=cuda)
+    assert tops.flash_attention(empty, empty, empty).shape == (0, 128, 4, 16)
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in _flash_inputs(1, 200, 4, 2, 16, seed=0))
+    with pytest.raises(ValueError, match="S=200"):
+        tops.flash_attention(q, k, v)
+    assert tops.launches["flash_attention"] == n0
+
+    b, s, h, kv, d = 2, 256, 8, 2, 32
+    g = torch.Generator(device=cuda).manual_seed(0)
+    fused = torch.randn((b, s, (h + 2 * kv) * d), generator=g, device=cuda)
+    q = fused[..., :h * d].view(b, s, h, d)
+    k = fused[..., h * d:(h + kv) * d].view(b, s, kv, d)
+    v = fused[..., (h + kv) * d:].view(b, s, kv, d)
+    assert not q.is_contiguous()
+    got = tops.flash_attention(q, k, v)
+    want = tref.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 2e-5
+    assert tops.launches["flash_attention"] == n0 + 1
+    qt = q.contiguous().transpose(1, 3).contiguous().transpose(1, 3)
+    assert qt.stride(3) != 1
+    with pytest.raises(ValueError, match="unit stride"):
+        tops.flash_attention(qt, k, v)
+
+
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -136,7 +198,8 @@ def test_server_on_card_matches_cpu(cuda, monkeypatch):
     """The slice on the card (CUDA kernels) against the CPU (plain
     versions), float32, chatglm3-6b reduced: identical greedy tokens,
     Completions, reports and pool metadata; logits within 1e-4 and pool
-    data within 1e-5 (fp32 sums in another order); every kernel launched."""
+    data within 1e-5 (fp32 sums in another order); every kernel of the
+    serving path launched, and flash_attention (prefill only) never."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core import engine as eng
@@ -159,7 +222,9 @@ def test_server_on_card_matches_cpu(cuda, monkeypatch):
     assert (lc - lg.cpu()).abs().max().item() < 1e-4
     assert torch.equal(tc, tg.cpu())
     assert eng.window_reports(rc) == eng.window_reports(rg)
-    assert all(tops.launches[k] > n0[k] for k in n0)
+    assert all(tops.launches[k] > n0[k]
+               for k in ("paged_attention", "access_scan", "migrate"))
+    assert tops.launches["flash_attention"] == n0["flash_attention"]
     fc, fg = _flat(s_cpu.state), _flat(s_gpu.state)
     for k in fc:
         if k.endswith("data"):
