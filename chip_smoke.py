@@ -13,7 +13,8 @@ order:
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it and at the CPU tests' shapes (access_scan
      and migrate exactly, paged_attention and flash_attention within 2e-2
-     in bf16 and 2e-5 in fp32, paged_attention's access bits exactly),
+     in bf16 and 2e-5 in fp32, paged_attention's access bits exactly,
+     mamba_scan bit for bit in fp32 and bf16 inputs),
      then timed beside its plain version, a one-call PyTorch yardstick
      where one exists, and the least time the card could take (bound_ms),
      at the shape of its path: per call over back-to-back calls with CUDA
@@ -38,15 +39,32 @@ order:
      logits within 5e-2), and a prefill of B=2 x S=4096 with
      attn_impl="flash" against "blockwise" on the same weights (float32
      logits within 5e-2; bfloat16 logits within two bf16 ulps of the
-     largest logit, see `prefill_flash_vs_blockwise`);
+     largest logit, see `prefill_flash_vs_blockwise`); and falcon-mamba's
+     prefill of B=2 x S=4096 with the mamba_scan kernel against the same
+     call with its plain version patched in, in float32 and bfloat16 (the
+     kernel-vs-plain gap no larger than the gap between two kernel runs),
+     and its float32 teacher-forced decode of B=2 x 64 tokens against the
+     prefill of the same tokens (logits within 1e-3);
   7. the prefill path: `Model.prefill` with chatglm3-6b at full width and
      depth (attn_impl="flash", random bf16 weights from a seeded
      generator) on B=2 prompts of S=4096 tokens; the launch counts are
      reset just before the first prefill and read just after it: exactly
-     28 flash_attention launches (one per layer) and no HADES kernel; the
+     28 flash_attention launches (one per layer) and no other kernel; the
      logits [2, 4096, 65024] fp32 must be finite. Then ms per prefill and
-     prefill tokens/s (median of 3), flash_attention's share of the device
-     time in one profiled prefill, and the peak device memory.
+     prefill tokens/s (median of 3), the idle share and flash_attention's
+     share of the device time in one profiled prefill, and the peak device
+     memory (idle shares are read against the profiled run's own wall);
+  8. the mamba1 path: falcon-mamba-7b at full width and depth (64 mamba1
+     layers, random bf16 weights from a seeded generator). `Model.prefill`
+     on B=2 x S=4096 tokens: exactly 64 mamba_scan launches and no other
+     kernel, finite logits [2, 4096, 65024]; ms per prefill and tokens/s
+     (median of 3), the idle share, mamba_scan's share of the device time,
+     the top kernels and kernels per prefill from one profiled prefill,
+     and the peak device memory. Then decode of 8 sequences through
+     `decode_step` (32 teacher-forced prompt tokens, 32 greedy tokens):
+     exactly 64 mamba_scan launches per step, ms per step, tokens/s and the
+     idle share of a profiled stretch; and the bf16 drift between the
+     prefill and the teacher-forced decode of B=2 x 64 tokens (reported).
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
 is not run from a checkout, or if any phase fails. The last lines of its
@@ -74,6 +92,8 @@ PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int32": 67e12}
 SERVE = dict(batch=8, max_len=512, block_tokens=16, collect_every=8)
 N_REQUESTS, MAX_NEW = 16, 32
 PREFILL_B, PREFILL_S = 2, 4096   # cut from prefill_32k (B=32, S=32768)
+DECODE_B, DECODE_PROMPT, DECODE_NEW = 8, 32, 32   # falcon-mamba decode
+DRIFT_S = 64       # tokens of the prefill-vs-decode comparisons
 TRACE_FROM = 6     # first of the two traced serve windows; lanes are full
 HADES_KERNELS = {"paged_attention": ("paged_attention_kernel",),
                  "access_scan": ("access_scan_kernel",),
@@ -83,12 +103,14 @@ TPU_KERNEL = {
     "access_scan": "src/repro/kernels/access_scan.py:88",
     "migrate": "src/repro/kernels/migrate.py:38",
     "flash_attention": "src/repro/kernels/flash_attention.py:65",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:44",
 }
 LIBRARY = {
     "paged_attention": "torch.nn.functional.scaled_dot_product_attention",
     "migrate": "data[dst] = data[src]", "access_scan": None,
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
-                       "is_causal=True, enable_gqa=True)"}
+                       "is_causal=True, enable_gqa=True)",
+    "mamba_scan": None}
 
 
 def log(*a):
@@ -373,6 +395,57 @@ def check_flash_attention(dev, mc):
     return dict(max_abs_err=worst[("prefill", "bfloat16")], bound_ms=b_ms,
                 bound_by=b_by, **t,
                 shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16 causal")
+
+
+# the CPU tests' sweep (tests/test_kernels.py): (b, s, c, n)
+SCAN_SWEEP = [(1, 64, 8, 16), (2, 128, 16, 8), (1, 32, 4, 4)]
+
+
+def check_mamba_scan(dev, mm):
+    """Bit for bit against the plain version at the sweep's shapes, at
+    falcon-mamba's decode shape (B=8, S=1) and at its prefill shape, each
+    in fp32 and bf16 inputs with a in [0.3, 1); then timed at the prefill
+    shape in fp32, the inputs the model gives it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(5)
+    c, n = mm.d_model * mm.ssm_expand, mm.ssm_state_dim
+    main = (PREFILL_B, PREFILL_S, c, n)
+
+    def inputs(shape, dtype):
+        a = (0.3 + 0.7 * torch.rand(shape, generator=g, device=dev)).to(dtype)
+        b = torch.randn(shape, generator=g, device=dev).to(dtype)
+        h0 = torch.randn((shape[0],) + shape[2:], generator=g, device=dev)
+        return a, b, h0
+
+    cases = [(shape, dtype) for shape in SCAN_SWEEP + [(DECODE_B, 1, c, n),
+                                                       main]
+             for dtype in (torch.float32, torch.bfloat16)]
+    for shape, dtype in cases:
+        args = inputs(shape, dtype)
+        got = ops.mamba_scan(*args)
+        want = ref.mamba_scan(*args)
+        torch.cuda.synchronize()
+        err = max((x - y).abs().max().item() for x, y in zip(got, want))
+        if err != 0 or not all(map(torch.equal, got, want)):
+            raise AssertionError(f"mamba_scan {shape} {dtype}: max |err| "
+                                 f"{err}, want 0")
+        del args, got, want
+    log(f"mamba_scan: bit for bit (h_all, h_last) at {len(cases)} cases: "
+        f"{SCAN_SWEEP + [(DECODE_B, 1, c, n), main]} x fp32 / bf16 inputs")
+    args = inputs(main, torch.float32)
+    t = timings(lambda: ops.mamba_scan(*args), 10,
+                lambda: ref.mamba_scan(*args), 3)
+    b, s, _, _ = main
+    elems, lanes = b * s * c * n, b * c * n
+    b_ms, b_by = bound(2 * elems * 4 + lanes * 4 + elems * 4 + lanes * 4,
+                       2 * elems, "fp32")
+    log(f"mamba_scan: {_fmt(t)} (no library call), bound {b_ms:.4f} ms "
+        f"({b_by}) at B={b} S={s} C={c} N={n} fp32")
+    del args
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, **t,
+                shape=f"B={b} S={s} C={c} N={n} fp32")
 
 
 # ---------------------------------------------------------------------------
@@ -751,56 +824,166 @@ def prefill_flash_vs_blockwise(dev):
     return out
 
 
+def _falcon(layers=None, dtype=None):
+    """falcon-mamba-7b at full width; depth cut to `layers` if given."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA1
+    cfg = get_config("falcon-mamba-7b")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  block_pattern=(MAMBA1,) * layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def _decode_logits(model, params, toks):
+    """Teacher-forced decode of toks [B, S] from a fresh state: [B, S, V]."""
+    import torch
+    state = model.init_decode_state(toks.shape[0], toks.shape[1])
+    out = []
+    for t in range(toks.shape[1]):
+        lg, state = model.decode_step(params, state, toks[:, t])
+        out.append(lg)
+    return torch.stack(out, 1)
+
+
+def mamba_kernel_vs_plain(dev):
+    """falcon-mamba at 2 layers and full width, B=2 x S=4096: the prefill
+    with the mamba_scan kernel (twice) against the same call with its
+    plain version patched in, in float32 (TF32 off) and bfloat16. The
+    kernel and its plain version agree bit for bit, so the kernel-vs-plain
+    gap may be no larger than the gap between two kernel runs (0 unless a
+    library call around them is not deterministic). In float32 the
+    teacher-forced decode of the first 64 tokens must also reproduce their
+    prefill within 1e-3."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(layers=2, batch=PREFILL_B, seq_len=PREFILL_S)
+    for dtype in ("float32", "bfloat16"):
+        cfg = _falcon(layers=2, dtype=dtype)
+        model = Model(cfg, device="cuda")
+        params = model.init(torch.Generator(device=dev).manual_seed(3))
+        batch = _prompts(cfg, dev, seed=2)
+        with torch.inference_mode():
+            n0 = ops.launches["mamba_scan"]
+            k1 = model.prefill(params, batch)
+            k2 = model.prefill(params, batch)
+            n = ops.launches["mamba_scan"] - n0
+            with mock.patch.object(ops, "mamba_scan", ref.mamba_scan):
+                plain = model.prefill(params, batch)
+            torch.cuda.synchronize()
+            kk = (k1 - k2).abs().max().item()
+            kp = (k1 - plain).abs().max().item()
+            top = plain.abs().max().item()
+            del k2, plain
+            res = dict(kernel_vs_plain=kp, kernel_vs_kernel=kk,
+                       max_abs_logit=top)
+            msg = ""
+            if dtype == "float32":
+                toks = batch["tokens"][:, :DRIFT_S]
+                dec = _decode_logits(model, params, toks)
+                pre = model.prefill(params, {"tokens": toks})
+                res["decode_vs_prefill"] = (dec - pre).abs().max().item()
+                msg = (f"; decode vs prefill of B={PREFILL_B} x {DRIFT_S} "
+                       f"tokens {res['decode_vs_prefill']:.3g} (< 1e-3)")
+        del params, k1
+        log(f"falcon-mamba prefill kernel vs plain ({dtype}, 2 layers, full "
+            f"width, B={PREFILL_B} S={PREFILL_S}): logits max |err| "
+            f"{kp:.3g}, kernel vs kernel {kk:.3g}, max |logit| {top:.3g}; "
+            f"{n} mamba_scan launches{msg}")
+        if n != 2 * cfg.num_layers:
+            raise AssertionError(f"{n} mamba_scan launches in two 2-layer "
+                                 "prefills")
+        if not kp <= kk:
+            raise AssertionError(f"{dtype}: kernel vs plain {kp} exceeds "
+                                 f"kernel vs kernel {kk}")
+        if not res.get("decode_vs_prefill", 0.0) < 1e-3:
+            raise AssertionError(f"decode vs prefill {res}")
+        out[dtype] = res
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the prefill path at full width and depth
 # ---------------------------------------------------------------------------
 def prefill_full(dev):
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     cfg = get_config("chatglm3-6b")
     model = Model(cfg, attn_impl="flash", device="cuda")
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    batch = _prompts(cfg, dev, seed=0)
-    n_tok = PREFILL_B * PREFILL_S
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        ops.reset_launches()
-        logits = model.prefill(params, batch)
+        res = measure_prefill(model, params, cfg, dev, "flash_attention")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _profiled(fn):
+    """Runs fn() once under torch.profiler: (its device events, the wall
+    ms of that run). The idle share is read against that wall: the
+    profiler slows the device by some microseconds a kernel, so a busy
+    time from the trace can exceed an unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        launches = dict(ops.launches)
-        shape = tuple(logits.shape)
-        finite = bool(torch.isfinite(logits).all())
-        del logits
-        log(f"prefill launches: {launches}")
-        if launches["flash_attention"] != cfg.num_layers or any(
-                launches[k] for k in HADES_KERNELS):
-            raise AssertionError(f"prefill launches {launches}: want "
-                                 f"{cfg.num_layers} flash_attention, no "
-                                 "HADES kernel")
-        if shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or not finite:
-            raise AssertionError(f"prefill logits {shape}, finite {finite}")
-        walls = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            model.prefill(params, batch)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model.prefill(params, batch)
-            torch.cuda.synchronize()
-    wall = float(np.median(walls))
+        wall_ms = (time.perf_counter() - t0) * 1e3
     dev_ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_ev:
         raise AssertionError("the profiler recorded no device activity")
+    return dev_ev, wall_ms
+
+
+def _only(launches, kernel, want):
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if launches[kernel] != want or others:
+        raise AssertionError(f"launches {launches}: want {want} {kernel} "
+                             "and no other kernel")
+
+
+def measure_prefill(model, params, cfg, dev, kernel):
+    """`Model.prefill` of B=PREFILL_B x S=PREFILL_S prompts: the launch
+    counts are reset just before one prefill and read just after (exactly
+    one `kernel` launch per layer and no other kernel), its logits must be
+    finite [B, S, V]; then ms per prefill (median of 3) and one profiled
+    prefill (idle share, the kernel's share of device time, top kernels)."""
+    import torch
+    from repro_torch.kernels import ops
+    batch = _prompts(cfg, dev, seed=0)
+    n_tok = PREFILL_B * PREFILL_S
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    logits = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    shape = tuple(logits.shape)
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    log(f"{cfg.name} prefill launches: {launches}")
+    _only(launches, kernel, cfg.num_layers)
+    if shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or not finite:
+        raise AssertionError(f"prefill logits {shape}, finite {finite}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dev_ev, prof_ms = _profiled(lambda: model.prefill(params, batch))
+    wall = float(np.median(walls))
     total_us = sum(e.time_range.elapsed_us() for e in dev_ev)
-    flash = [e for e in dev_ev if "flash_attention_kernel" in e.name]
-    flash_us = sum(e.time_range.elapsed_us() for e in flash)
+    mine = [e for e in dev_ev if f"{kernel}_kernel" in e.name]
+    mine_us = sum(e.time_range.elapsed_us() for e in mine)
     busy_us = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in dev_ev])
     by_name = collections.defaultdict(float)
@@ -808,33 +991,122 @@ def prefill_full(dev):
         by_name[e.name[:100]] += e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     res = dict(layers=cfg.num_layers, batch=PREFILL_B, seq_len=PREFILL_S,
-               ms_per_prefill=wall * 1e3, prefill_ms_runs=[w * 1e3
-                                                           for w in walls],
-               tok_per_s=n_tok / wall,
+               ms_per_prefill=wall, prefill_ms_runs=walls,
+               tok_per_s=n_tok / wall * 1e3, profiled_ms=prof_ms,
                device_ms_per_prefill=total_us / 1e3,
                device_busy_ms=busy_us / 1e3,
-               device_idle_share=1 - busy_us / 1e3 / (wall * 1e3),
-               flash_launches_profiled=len(flash),
-               flash_device_ms=flash_us / 1e3,
-               flash_device_share=flash_us / total_us,
+               device_idle_share=1 - busy_us / 1e3 / prof_ms,
+               kernel=kernel, kernel_launches_profiled=len(mine),
+               kernel_device_ms=mine_us / 1e3,
+               kernel_device_share=mine_us / total_us,
                launches=launches, top_kernels_ms=dict(top),
                kernels_per_prefill=len(dev_ev),
                peak_device_bytes=torch.cuda.max_memory_allocated())
-    log(f"prefill: chatglm3-6b {cfg.num_layers} layers, B={PREFILL_B} x "
-        f"S={PREFILL_S}: {res['ms_per_prefill']:.1f} ms per prefill "
-        f"(runs {[round(w * 1e3, 1) for w in walls]}), "
-        f"{res['tok_per_s']:.0f} tok/s; profiled: device {total_us / 1e3:.1f}"
-        f" ms, busy {busy_us / 1e3:.1f} ms (idle share "
-        f"{res['device_idle_share']:.5f} of the unprofiled wall), "
-        f"flash_attention {len(flash)} launches {flash_us / 1e3:.1f} ms = "
-        f"{res['flash_device_share']:.3f} of device time; peak device memory "
+    log(f"prefill: {cfg.name} {cfg.num_layers} layers, B={PREFILL_B} x "
+        f"S={PREFILL_S}: {wall:.1f} ms per prefill (runs "
+        f"{[round(w, 1) for w in walls]}), {res['tok_per_s']:.0f} tok/s; "
+        f"profiled: {prof_ms:.1f} ms, device {total_us / 1e3:.1f} ms, busy "
+        f"{busy_us / 1e3:.1f} ms (idle share {res['device_idle_share']:.5f}), "
+        f"{kernel} {len(mine)} launches {mine_us / 1e3:.1f} ms = "
+        f"{res['kernel_device_share']:.3f} of device time; peak device memory "
         f"{res['peak_device_bytes'] / 2**30:.2f} GiB; {len(dev_ev)} device "
         "kernels and copies")
     for k, v in top:
         log(f"  {v:9.3f} ms  {k}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the mamba1 path at full width and depth
+# ---------------------------------------------------------------------------
+def mamba_decode(model, params, cfg, dev):
+    """Decode of DECODE_B sequences: DECODE_PROMPT teacher-forced tokens,
+    then DECODE_NEW greedy ones, each step's launches counted from 0; then
+    a profiled stretch of 4 more steps for the idle share."""
+    import torch
+    from repro_torch.kernels import ops
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (DECODE_B, DECODE_PROMPT))).to(dev)
+    state = model.init_decode_state(DECODE_B, DECODE_PROMPT + DECODE_NEW)
+    tok, per_step = prompt[:, 0], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_PROMPT + DECODE_NEW):
+        ops.reset_launches()
+        logits, state = model.decode_step(params, state, tok)
+        per_step.append(dict(ops.launches))
+        tok = prompt[:, t + 1] if t + 1 < DECODE_PROMPT else logits.argmax(-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for launches in per_step:
+        _only(launches, "mamba_scan", cfg.num_layers)
+    steps = len(per_step)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode logits are not finite")
+    ms_step = wall / steps * 1e3
+
+    def stretch():
+        nonlocal state, tok
+        for _ in range(4):
+            logits, state = model.decode_step(params, state, tok)
+            tok = logits.argmax(-1)
+    dev_ev, prof_ms = _profiled(stretch)
+    busy_us = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in dev_ev])
+    res = dict(batch=DECODE_B, steps=steps, ms_per_step=ms_step,
+               tok_per_s=DECODE_B * steps / wall,
+               launches_per_step=per_step[0],
+               profiled_ms_per_step=prof_ms / 4,
+               device_busy_ms_per_step=busy_us / 1e3 / 4,
+               device_idle_share=1 - busy_us / 1e3 / prof_ms,
+               kernels_per_step=len(dev_ev) / 4)
+    log(f"falcon-mamba decode: B={DECODE_B}, {DECODE_PROMPT} teacher-forced "
+        f"+ {DECODE_NEW} greedy steps, {cfg.num_layers} mamba_scan launches "
+        f"each: {ms_step:.2f} ms per step, {res['tok_per_s']:.1f} tok/s; "
+        f"profiled 4 steps: {res['profiled_ms_per_step']:.2f} ms per step, "
+        f"device busy {res['device_busy_ms_per_step']:.3f} ms of it, idle "
+        f"share {res['device_idle_share']:.4f}, "
+        f"{res['kernels_per_step']:.0f} kernels per step")
+    return res
+
+
+def mamba_drift(model, params, cfg, dev):
+    """bf16 prefill against teacher-forced decode of B=2 x DRIFT_S tokens
+    at full depth (reported, not gated)."""
+    import torch
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (PREFILL_B, DRIFT_S))).to(dev)
+    pre = model.prefill(params, {"tokens": toks})
+    dec = _decode_logits(model, params, toks)
+    err = (dec - pre).abs().max().item()
+    agree = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
+    top = pre.abs().max().item()
+    log(f"falcon-mamba bf16 drift, prefill vs teacher-forced decode (B="
+        f"{PREFILL_B} x {DRIFT_S}, {cfg.num_layers} layers): max |dlogit| "
+        f"{err:.4g}, max |logit| {top:.4g}, argmax agreement {agree:.4f}")
+    return dict(max_abs_dlogit=err, max_abs_logit=top, argmax_agreement=agree)
+
+
+def mamba_full(dev):
+    import torch
+    from repro_torch.models.model import Model
+    cfg = _falcon()
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"falcon-mamba-7b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params ({cfg.dtype}), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        res = dict(params=n_params, prefill=measure_prefill(
+            model, params, cfg, dev, "mamba_scan"))
+        res["decode"] = mamba_decode(model, params, cfg, dev)
+        res["drift_bf16"] = mamba_drift(model, params, cfg, dev)
     del params
     torch.cuda.empty_cache()
-    return launches, res
+    return res
 
 
 def main() -> int:
@@ -880,14 +1152,19 @@ def main() -> int:
         "access_scan": check_access_scan(dev, pcfg),
         "migrate": check_migrate(dev, pcfg, CollectorConfig().move_budget),
         "flash_attention": check_flash_attention(dev, mc),
+        "mamba_scan": check_mamba_scan(dev, get_config("falcon-mamba-7b")),
     }
     launches, serve_summary, steps = serve_full(dev)
     path = kernel_vs_plain(dev)
     path["prefill"] = prefill_flash_vs_blockwise(dev)
-    prefill_launches, prefill_summary = prefill_full(dev)
+    path["falcon_mamba_prefill"] = mamba_kernel_vs_plain(dev)
+    prefill_summary = prefill_full(dev)
+    mamba = mamba_full(dev)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
-    main_launches["flash_attention"] = prefill_launches["flash_attention"]
+    main_launches["flash_attention"] = \
+        prefill_summary["launches"]["flash_attention"]
+    main_launches["mamba_scan"] = mamba["prefill"]["launches"]["mamba_scan"]
 
     rows = []
     for kname, k in kernels.items():
@@ -907,6 +1184,7 @@ def main() -> int:
         "library_calls": LIBRARY, "serve": serve_summary,
         "launches_per_step": {k: launches[k] / steps for k in HADES_KERNELS},
         "prefill": prefill_summary, "kernel_vs_plain": path,
+        "falcon_mamba": mamba,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

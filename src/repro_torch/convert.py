@@ -28,12 +28,17 @@ def _convert(tree, device):
     return _tensor(tree, device)
 
 
+def _first_leaf(tree):
+    return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) \
+        else tree
+
+
 def from_jax(params: dict, device="cpu") -> dict:
     """JAX params (numpy leaves) -> the port's params on `device`."""
     out = {k: _convert(v, device) for k, v in params.items()
            if k != "layers"}
     stacked = _convert(params["layers"], device)
-    n = len(np.asarray(params["layers"]["ln1"]))
+    n = len(_first_leaf(stacked))
 
     def layer(tree, i):
         if isinstance(tree, dict):

@@ -6,4 +6,5 @@
   access_scan      collector table sweep (CIW update, Fig. 5 masks)
   migrate          Object Collector data mover (gather, then scatter)
   flash_attention  full-sequence causal / sliding-window attention (prefill)
+  mamba_scan       selective-SSM recurrence h_t = a_t h_{t-1} + b_t (mamba1)
 """

@@ -20,7 +20,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention", "access_scan", "migrate", "flash_attention")
+SOURCES = ("paged_attention", "access_scan", "migrate", "flash_attention",
+           "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,7 @@ _ARGTYPES = {
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I,
                         _I, _I, _P),
+    "mamba_scan": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

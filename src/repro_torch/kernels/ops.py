@@ -22,7 +22,7 @@ from repro_torch.kernels import ref
 
 # launches of each kernel since the last reset (the main path's evidence)
 launches: Dict[str, int] = {name: 0 for name in build.SOURCES}
-# dtype codes of the attention kernels' C entry points
+# dtype codes of the C entry points
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -222,3 +222,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             out.data_ptr(), b, s, h, kv, d, strides, d ** -0.5, int(causal),
             window, _DTYPES[q.dtype], _stream())
     return out
+
+
+# ---------------------------------------------------------------------------
+# mamba_scan
+# ---------------------------------------------------------------------------
+def mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t per lane. a, b: [B, S, C, N] contiguous,
+    one dtype, float32 or bfloat16; h0: [B, C, N] contiguous float32.
+    Returns (h_all [B, S, C, N] fp32, h_last [B, C, N] fp32), bit for bit
+    the plain version's."""
+    if _on_cpu(a, b, h0):
+        return ref.mamba_scan(a, b, h0)
+    _check(a.dim() == 4 and a.shape == b.shape, "a/b: [B, S, C, N]")
+    bsz, s, c, n = a.shape
+    _check(h0.shape == (bsz, c, n), "h0: [B, C, N]")
+    _check(a.dtype in _DTYPES and b.dtype == a.dtype,
+           "a/b must share one dtype, float32 or bfloat16")
+    _check(h0.dtype == torch.float32, "h0 must be float32")
+    _check(a.is_contiguous() and b.is_contiguous() and h0.is_contiguous(),
+           "a/b/h0 must be contiguous")
+    h_all = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    h_last = torch.empty(h0.shape, dtype=torch.float32, device=a.device)
+    if h_all.numel() == 0:
+        return h_all, h_last.copy_(h0)
+    _launch("mamba_scan", a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+            h_all.data_ptr(), h_last.data_ptr(), bsz, s, c * n,
+            _DTYPES[a.dtype], _stream())
+    return h_all, h_last

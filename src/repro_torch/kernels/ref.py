@@ -114,3 +114,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores + bias, dim=-1)
     out = torch.einsum("bkrst,btkd->bskrd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective-SSM recurrence h_t = a_t * h_{t-1} + b_t, per lane
+    (b, c, n), in fp32. a, b: [B, S, C, N] fp32 or bf16; h0: [B, C, N].
+    Each step is a separate product and sum (two roundings, no fused
+    multiply-add), as the CUDA kernel computes it. Returns (h_all [B, S, C,
+    N] fp32, h_last [B, C, N] fp32)."""
+    a, b = a.float(), b.float()
+    h = h0.float()
+    h_all = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        h_all[:, t] = h
+    return h_all, h.clone()

@@ -1,7 +1,8 @@
 """Public model facade of the port (counterpart of `repro/models/model.py`
-for the dense decoder): the config, the device the weights live on, a
-seeded random init, and the step functions on the JAX package's batch
-dicts ({"tokens"} for forward / prefill, {"tokens", "labels"} for loss).
+for the dense decoder and the ssm family): the config, the device the
+weights live on, a seeded random init, and the step functions on the JAX
+package's batch dicts ({"tokens"} for forward / prefill, {"tokens",
+"labels"} for loss).
 """
 from __future__ import annotations
 
@@ -28,7 +29,9 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 class Model:
     """attn_impl: "full", "blockwise" or "flash" (the flash_attention
-    kernel) for the full-sequence paths; remat takes only "none" here."""
+    kernel) for the full-sequence paths of attention layers (ssm layers
+    ignore it and run the mamba_scan kernel); remat takes only "none"
+    here."""
 
     def __init__(self, cfg: ModelConfig, attn_impl: str = "blockwise",
                  remat: str = "none", device: Optional[str] = None):
@@ -61,6 +64,7 @@ class Model:
         return self.forward(params, batch)[0]
 
     def init_decode_state(self, batch: int, max_len: int) -> dict:
+        """The ssm family's state is O(1) in length: max_len is ignored."""
         return T.init_decode_state(self.cfg, batch, max_len, self.device)
 
     def decode_step(self, params, state, tokens, **kw):

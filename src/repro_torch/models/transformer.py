@@ -1,11 +1,13 @@
-"""The dense decoder (port of the dense branch of
+"""The decoder-only LM (port of the dense and ssm branches of
 `repro/models/transformer.py`): init, the full-sequence forward and loss
-(`attn_ffn_block`, `lm_forward`, `lm_loss`), and single-token decode over
-a dense ring cache (`decode_layer_step`, `attn_block_decode`,
-`init_decode_state`, `lm_decode_step`).
+(`attn_ffn_block`, `lm_forward`, `lm_loss`), and single-token decode
+(`init_decode_state`, `lm_decode_step`) over a dense ring cache
+(`decode_layer_step`, `attn_block_decode`) or, for the ssm family
+(falcon-mamba: mamba1 layers, `models/ssm.py`), an O(1) recurrent state.
 
 Parameters are a plain dict: {"embed" [V, D], "final_ln" [D], "out" [D, V]
-(absent with tied embeddings), "layers": [one dict per layer]}. The JAX
+(absent with tied embeddings), "layers": [one dict per layer]}; a dense
+layer holds attention and FFN weights, an ssm layer {"ln", "m"}. The JAX
 package stacks the layer dicts on a leading [L] axis; the port keeps a
 list, since its layers run as a Python loop (`convert.py` unstacks).
 """
@@ -15,9 +17,11 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.configs.base import MAMBA1
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 
 ATTN_IMPLS = ("full", "blockwise", "flash")
 
@@ -50,15 +54,25 @@ def init_attn_layer(cfg, dtype, generator, device) -> dict:
     }
 
 
-def _check_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.block_pattern or cfg.is_encoder_decoder:
+def _check_ported(cfg) -> None:
+    """The port runs the dense family and the ssm family of mamba1 layers
+    (falcon-mamba); every other family raises."""
+    dense = cfg.family == "dense" and not cfg.block_pattern
+    ssm = cfg.family == "ssm" and set(cfg.blocks) == {MAMBA1}
+    if not (dense or ssm) or cfg.is_encoder_decoder:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
+def _no_hiddens(cfg, return_hiddens: bool) -> None:
+    if return_hiddens and cfg.family == "ssm":
+        raise ValueError("return_hiddens: attn-family layers only")
+
+
 def init_lm(cfg, generator: torch.Generator, device) -> dict:
-    """Random weights for a dense decoder, at the JAX package's shapes and
-    scales (the values differ: torch's generator is not JAX's)."""
-    _check_dense(cfg)
+    """Random weights for a dense or ssm decoder, at the JAX package's
+    shapes and scales (the values differ: torch's generator is not
+    JAX's)."""
+    _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
     params = {
         "embed": _normal((cfg.vocab_size, cfg.d_model), 0.02, dtype,
@@ -69,8 +83,15 @@ def init_lm(cfg, generator: torch.Generator, device) -> dict:
     if not cfg.tie_embeddings:
         params["out"] = _normal((cfg.vocab_size, cfg.d_model), 0.02, dtype,
                                 generator, device).T.contiguous()
-    layers: List[dict] = [init_attn_layer(cfg, dtype, generator, device)
-                          for _ in range(cfg.num_layers)]
+    if cfg.family == "ssm":
+        layers: List[dict] = [
+            {"ln": torch.zeros(cfg.d_model, dtype=torch.float32,
+                               device=device),
+             "m": ssm_lib.init_mamba1(cfg, dtype, generator, device)}
+            for _ in range(cfg.num_layers)]
+    else:
+        layers = [init_attn_layer(cfg, dtype, generator, device)
+                  for _ in range(cfg.num_layers)]
     params["layers"] = layers
     return params
 
@@ -133,7 +154,7 @@ def _pos2d(positions):
 
 
 def _check_forward(cfg, remat: str, extra_embeds, enc_embeds) -> None:
-    _check_dense(cfg)
+    _check_ported(cfg)
     if extra_embeds is not None or enc_embeds is not None:
         raise NotImplementedError("extra_embeds / enc_embeds (vlm, "
                                   "encoder-decoder) are not ported")
@@ -156,11 +177,21 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
                return_cache: bool = False, return_hiddens: bool = False):
     """tokens: [B, S] -> (logits [B, S, V] fp32, aux). The layers run as a
     Python loop over params["layers"]. `return_cache` puts "kv_cache" =
-    (k, v), each [L, B, S, KV, Dh] after rotary, in aux; `return_hiddens`
-    puts "hiddens" [L, B, S, D], the post-layer residual stream. (The
-    dense family has no MoE auxiliary loss or expert counts.)"""
+    (k, v), each [L, B, S, KV, Dh] after rotary, in aux (None for the ssm
+    family, as in JAX); `return_hiddens` puts "hiddens" [L, B, S, D], the
+    post-layer residual stream (attn-family layers only). ssm layers
+    ignore `positions` and `attn_impl`. (The dense and ssm families have
+    no MoE auxiliary loss or expert counts.)"""
     _check_forward(cfg, remat, extra_embeds, enc_embeds)
+    _no_hiddens(cfg, return_hiddens)
     x = L.embed(params["embed"], tokens)
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
+            y, _ = ssm_lib.mamba1_forward(
+                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+            x = x + y
+        return _head(params, cfg, x), (
+            {"kv_cache": None} if return_cache else {})
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -197,12 +228,19 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
 def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:
     """Dense (non-paged) decode state: {"pos": int, "kv": {"k", "v":
     [L, B, C, KV, Dh], "k_pos": [L, B, C] int32 (-1 empty)}}. C is max_len,
-    clipped to the sliding window for windowed configs (ring buffer)."""
-    _check_dense(cfg)
+    clipped to the sliding window for windowed configs (ring buffer). For
+    the ssm family: {"pos": int, "ssm": {"h": [L, B, Din, N] fp32, "conv":
+    [L, B, K-1, Din]}}, the JAX package's layout; max_len is ignored."""
+    _check_ported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "ssm":
+        st = ssm_lib.mamba1_init_state(cfg, batch, dtype, device)
+        return {"pos": 0, "ssm": {
+            k: torch.zeros((cfg.num_layers,) + v.shape, dtype=v.dtype,
+                           device=device) for k, v in st.items()}}
     hd = cfg.resolved_head_dim
     c = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     shape = (cfg.num_layers, batch, c, cfg.num_kv_heads, hd)
-    dtype = getattr(torch, cfg.dtype)
     return {"pos": 0, "kv": {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -235,12 +273,24 @@ def attn_block_decode(p: dict, x: torch.Tensor, cfg, cache: dict, pos: int):
 def lm_decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor, *,
                    return_hiddens: bool = False):
     """tokens: [B] -> (logits [B, V], state), one token per sequence. The
-    caches in `state` are updated in place (the JAX package returns new
-    ones); the returned state carries pos + 1. `return_hiddens` appends the
-    post-layer residual stream [L, B, 1, D]."""
-    _check_dense(cfg)
+    caches (or ssm states) in `state` are updated in place (the JAX
+    package returns new ones); the returned state carries pos + 1.
+    `return_hiddens` (attn family only) appends the post-layer residual
+    stream [L, B, 1, D]."""
+    _check_ported(cfg)
+    _no_hiddens(cfg, return_hiddens)
     x = L.embed(params["embed"], tokens)[:, None, :]
     pos = state["pos"]
+    if cfg.family == "ssm":
+        ssm = state["ssm"]
+        for i, lp in enumerate(params["layers"]):
+            y, new = ssm_lib.mamba1_step(
+                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                {k: v[i] for k, v in ssm.items()})
+            for k, v in ssm.items():
+                v[i] = new[k]
+            x = x + y
+        return _head(params, cfg, x)[:, 0], dict(state, pos=pos + 1)
     kv = state["kv"]
     hs = []
     for i, lp in enumerate(params["layers"]):

@@ -1,5 +1,5 @@
 """Every CUDA kernel of the port against its plain version on the card,
-at the CPU tests' shapes and at the serving path's. Marked `gpu`: each
+at the CPU tests' shapes and at the shapes of the paths that run it. Marked `gpu`: each
 test skips without a CUDA device. This file imports no JAX, so it runs on
 a machine that has only PyTorch:
 
@@ -242,3 +242,91 @@ def test_server_on_card_matches_cpu(cuda, monkeypatch):
     assert s_cpu.reports == s_gpu.reports
     assert s_gpu.dispatches == len(s_gpu.serve_log)
     assert s_gpu.kv_rss_bytes() == 0.0
+
+
+# mamba_scan: tests/test_kernels.py's sweep (b, s, c, n), falcon-mamba's
+# decode shape (S=1), and lane counts B*C*N that are not a multiple of
+# the kernel's 128-thread block, with S not a multiple of its unroll
+SCAN_SHAPES = [(1, 64, 8, 16), (2, 128, 16, 8), (1, 32, 4, 4),
+               (8, 1, 8192, 16), (3, 13, 7, 9), (1, 1003, 5, 3)]
+
+
+def _scan_inputs(b, s, c, n, dev, dtype, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.3, 1.0, (b, s, c, n)).astype(np.float32)
+    bb = rng.normal(size=(b, s, c, n)).astype(np.float32)
+    h0 = rng.normal(size=(b, c, n)).astype(np.float32)
+    return (torch.from_numpy(a).to(dev, dtype),
+            torch.from_numpy(bb).to(dev, dtype), torch.from_numpy(h0).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,c,n", SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_matches_plain(cuda, b, s, c, n, dtype):
+    """Bit for bit: both compute each step as a rounded product and a
+    rounded sum in fp32."""
+    a, bb, h0 = _scan_inputs(b, s, c, n, cuda, dtype, seed=s * c + n)
+    n0 = tops.launches["mamba_scan"]
+    got_all, got_last = tops.mamba_scan(a, bb, h0)
+    want_all, want_last = tref.mamba_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert tops.launches["mamba_scan"] == n0 + 1
+    assert got_all.dtype == got_last.dtype == torch.float32
+    assert torch.equal(got_all, want_all) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.gpu
+def test_mamba_scan_refuses_bad_inputs(cuda):
+    """Non-contiguous or mistyped inputs raise ValueError before any
+    launch; an empty sequence returns h0 and launches nothing."""
+    a, bb, h0 = _scan_inputs(2, 8, 4, 4, cuda, torch.float32, seed=0)
+    n0 = tops.launches["mamba_scan"]
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.mamba_scan(a.transpose(2, 3), bb.transpose(2, 3), h0)
+    with pytest.raises(ValueError, match="one dtype"):
+        tops.mamba_scan(a, bb.bfloat16(), h0)
+    with pytest.raises(ValueError, match="one dtype"):
+        tops.mamba_scan(a.half(), bb.half(), h0)
+    with pytest.raises(ValueError, match="h0 must be float32"):
+        tops.mamba_scan(a, bb, h0.bfloat16())
+    with pytest.raises(ValueError, match="h0"):
+        tops.mamba_scan(a, bb, h0[:1])
+    h_all, h_last = tops.mamba_scan(a[:, :0], bb[:, :0], h0)
+    assert h_all.shape == (2, 0, 4, 4) and torch.equal(h_last, h0)
+    assert tops.launches["mamba_scan"] == n0
+
+
+@pytest.mark.gpu
+def test_falcon_mamba_on_card_matches_cpu(cuda, monkeypatch):
+    """falcon-mamba-7b reduced, float32, on the card (the mamba_scan
+    kernel) against the CPU (its plain version): one launch per layer in a
+    prefill and in each decode step, no other kernel; logits within 1e-4
+    (fp32 sums in another order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b", reduced=True),
+                              dtype="float32")
+    m_cpu, m_gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _to(p_cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 16)))
+    tops.reset_launches()
+    lg = m_gpu.prefill(p_gpu, {"tokens": toks.to(cuda)})
+    assert tops.launches["mamba_scan"] == cfg.num_layers
+    assert sum(tops.launches.values()) == cfg.num_layers
+    lc = m_cpu.prefill(p_cpu, {"tokens": toks})
+    assert (lc - lg.cpu()).abs().max().item() < 1e-4
+    s_cpu, s_gpu = m_cpu.init_decode_state(2, 16), m_gpu.init_decode_state(2, 16)
+    for t in range(4):
+        tops.reset_launches()
+        dg, s_gpu = m_gpu.decode_step(p_gpu, s_gpu, toks[:, t].to(cuda))
+        assert tops.launches["mamba_scan"] == cfg.num_layers
+        assert sum(tops.launches.values()) == cfg.num_layers
+        dc, s_cpu = m_cpu.decode_step(p_cpu, s_cpu, toks[:, t])
+        assert (dc - dg.cpu()).abs().max().item() < 1e-4
+    for k in ("h", "conv"):
+        assert (s_cpu["ssm"][k] - s_gpu["ssm"][k].cpu()).abs().max().item() \
+            < 1e-4

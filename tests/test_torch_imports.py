@@ -24,7 +24,8 @@ def test_port_imports_no_jax_and_no_repro():
         repro_torch.__path__, "repro_torch."))
     assert {"repro_torch.runtime.server", "repro_torch.models.model",
             "repro_torch.models.transformer", "repro_torch.models.attention",
-            "repro_torch.kernels.ops", "repro_torch.kernels.ref"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.kernels.ops",
+            "repro_torch.kernels.ref"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
