@@ -14,7 +14,10 @@ order:
      shapes its path gives it and at the CPU tests' shapes (access_scan
      and migrate exactly, paged_attention and flash_attention within 2e-2
      in bf16 and 2e-5 in fp32, paged_attention's access bits exactly,
-     mamba_scan bit for bit in fp32 and bf16 inputs),
+     mamba_scan bit for bit in fp32 and bf16 inputs; flash_attention also
+     at the bf16 edges of its tensor-core variant and on strided views,
+     each case logged with the variant that ran: bf16 on the tensor
+     cores, fp32 and a view TMA cannot describe on the CUDA cores),
      then timed beside its plain version, a one-call PyTorch yardstick
      where one exists, and the least time the card could take (bound_ms),
      at the shape of its path: per call over back-to-back calls with CUDA
@@ -49,11 +52,14 @@ order:
      depth (attn_impl="flash", random bf16 weights from a seeded
      generator) on B=2 prompts of S=4096 tokens; the launch counts are
      reset just before the first prefill and read just after it: exactly
-     28 flash_attention launches (one per layer) and no other kernel; the
-     logits [2, 4096, 65024] fp32 must be finite. Then ms per prefill and
-     prefill tokens/s (median of 3), the idle share and flash_attention's
-     share of the device time in one profiled prefill, and the peak device
-     memory (idle shares are read against the profiled run's own wall);
+     28 flash_attention launches (one per layer), all of the tensor-core
+     variant, and no other kernel; the logits [2, 4096, 65024] fp32 must
+     be finite. The profiled prefill must show 28 kernels named
+     flash_attention_wgmma_kernel and none of the CUDA-core
+     flash_attention_kernel. Then ms per prefill and prefill tokens/s
+     (median of 3), the idle share and flash_attention's share of the
+     device time in one profiled prefill, and the peak device memory (idle
+     shares are read against the profiled run's own wall);
   8. the mamba1 path: falcon-mamba-7b at full width and depth (64 mamba1
      layers, random bf16 weights from a seeded generator). `Model.prefill`
      on B=2 x S=4096 tokens: exactly 64 mamba_scan launches and no other
@@ -105,6 +111,9 @@ TPU_KERNEL = {
     "flash_attention": "src/repro/kernels/flash_attention.py:65",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:44",
 }
+FLASH_SOURCES = {
+    "tensor_cores": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+    "cuda_cores": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 LIBRARY = {
     "paged_attention": "torch.nn.functional.scaled_dot_product_attention",
     "migrate": "data[dst] = data[src]", "access_scan": None,
@@ -348,9 +357,40 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg):
 # the CPU tests' sweep (tests/test_kernels.py): (b, s, h, kv, d) x masks
 FLASH_SWEEP = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 16)]
 FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
+# bf16 edges of the tensor-core kernel (tests/test_torch_gpu.py's
+# FLASH_TC_EDGES): (b, s, h, kv, d, causal, window)
+FLASH_TC_EDGES = [
+    (2, 64, 4, 4, 64, True, 0), (2, 100, 6, 2, 32, True, 0),
+    (1, 100, 32, 2, 128, False, 0), (2, 256, 3, 1, 96, True, 0),
+    (1, 384, 6, 2, 16, True, 16), (1, 512, 32, 2, 128, True, 64),
+    (2, 384, 4, 4, 128, True, 200), (1, 256, 16, 1, 64, False, 64),
+    (1, 128, 9, 3, 96, False, 200), (2, 512, 16, 16, 32, True, 0)]
+
+
+def _flash_run(fn):
+    """fn()'s result and the flash_attention variant it launched."""
+    import torch
+    from repro_torch.kernels import ops
+    before = dict(ops.flash_variants)
+    out = fn()
+    torch.cuda.synchronize()
+    ran = [k for k in before if ops.flash_variants[k] != before[k]]
+    if len(ran) != 1:
+        raise AssertionError(f"flash variants {before} -> "
+                             f"{ops.flash_variants}: want one launch")
+    return out, ran[0]
 
 
 def check_flash_attention(dev, mc):
+    """Every case against the plain version (2e-5 fp32, 2e-2 bf16), with
+    the variant that ran: the CPU tests' sweep and the prefill shape in
+    both dtypes, the tensor-core kernel's bf16 edges, and bf16 views of a
+    fused projection (the tensor cores) and one TMA cannot describe (the
+    CUDA cores). bf16 cases other than that view must run on the tensor
+    cores, fp32 ones on the CUDA cores. Then the tensor-core kernel timed
+    at the prefill shape beside the plain version, SDPA and the bound, and
+    the CUDA-core kernel on the same bf16 inputs (as a view TMA cannot
+    describe) in the same run."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -360,40 +400,83 @@ def check_flash_attention(dev, mc):
         return [torch.randn(shape, generator=g, device=dev).to(dtype)
                 for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
 
+    def odd_view(x):
+        """x as a view one element past an aligned base, position stride
+        not a multiple of 8: a view TMA cannot describe."""
+        b, s, h, d = x.shape
+        big = torch.empty((b, s, h * d + 1), dtype=x.dtype, device=dev)
+        view = big[..., 1:].view(b, s, h, d)
+        view.copy_(x)
+        return view
+
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     main = (PREFILL_B, PREFILL_S, mc.num_heads, mc.num_kv_heads,
             mc.resolved_head_dim)
-    cases = [(shape, causal, window, dtype)
+    cases = [(shape, causal, window, dtype, "sweep")
              for shape in FLASH_SWEEP for causal, window in FLASH_MASKS
              for dtype in tols]
-    cases += [(main, True, 0, torch.bfloat16), (main, True, 0, torch.float32)]
-    worst = {}
-    for shape, causal, window, dtype in cases:
-        q, k, v = inputs(*shape, dtype)
-        got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    cases += [(main, True, 0, torch.bfloat16, "prefill"),
+              (main, True, 0, torch.float32, "prefill")]
+    cases += [(e[:5], e[5], e[6], torch.bfloat16, "edge")
+              for e in FLASH_TC_EDGES]
+    cases += [((2, 256, 8, 2, 64), True, 0, torch.bfloat16, "fused view"),
+              ((2, 256, 8, 2, 64), True, 0, torch.bfloat16, "odd view")]
+    worst, ran = {}, collections.Counter()
+    for shape, causal, window, dtype, kind in cases:
+        if kind == "fused view":
+            b, s, h, kv, d = shape
+            fused = torch.randn((b, s, (h + 2 * kv) * d), generator=g,
+                                device=dev).to(dtype)
+            q, k, v = (fused[..., :h * d].view(b, s, h, d),
+                       fused[..., h * d:(h + kv) * d].view(b, s, kv, d),
+                       fused[..., (h + kv) * d:].view(b, s, kv, d))
+        else:
+            q, k, v = inputs(*shape, dtype)
+            if kind == "odd view":
+                q = odd_view(q)
+        got, variant = _flash_run(lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window))
+        want = ref.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        expect = (ops.TENSOR_CORES if dtype == torch.bfloat16
+                  and kind != "odd view" else ops.CUDA_CORES)
+        log(f"flash_attention {kind} {shape} causal={causal} window={window} "
+            f"{str(dtype)[6:]}: {variant}, max |err| {err:.3g}")
+        if variant != expect:
+            raise AssertionError(f"flash_attention {shape} {dtype} {kind} "
+                                 f"ran on {variant}, want {expect}")
         if not err < tols[dtype]:
             raise AssertionError(f"flash_attention {shape} causal={causal} "
                                  f"window={window} {dtype}: err {err}")
-        key = ("prefill" if shape == main else "sweep", str(dtype)[6:])
+        key = (kind, str(dtype)[6:], variant)
         worst[key] = max(worst.get(key, 0.0), err)
+        ran[variant] += 1
     log(f"flash_attention: {len(cases)} cases within 2e-5 (fp32) / 2e-2 "
-        f"(bf16); max |err| {worst}")
+        f"(bf16), {dict(ran)}; max |err| {worst}")
     q, k, v = inputs(*main, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    t = timings(lambda: ops.flash_attention(q, k, v), 10,
+    _, variant = _flash_run(lambda: ops.flash_attention(q, k, v))
+    t = timings(lambda: ops.flash_attention(q, k, v), 20,
                 lambda: ref.flash_attention(q, k, v), 3,
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True))
+    q_odd = odd_view(q)
+    _, cc_variant = _flash_run(lambda: ops.flash_attention(q_odd, k, v))
+    cc_ms = cuda_time(lambda: ops.flash_attention(q_odd, k, v), 3, warmup=1)
+    del q_odd
     b, s, h, kv, d = main
     b_ms, b_by = bound(b * s * (2 * h + 2 * kv) * d * 2,
                        2 * b * h * d * s * (s + 1), "bf16")
-    log(f"flash_attention: {_fmt(t)} (library: SDPA), bound {b_ms:.5f} ms "
-        f"({b_by}) at B={b} S={s} H={h} KV={kv} D={d} bf16 causal")
-    return dict(max_abs_err=worst[("prefill", "bfloat16")], bound_ms=b_ms,
-                bound_by=b_by, **t,
+    log(f"flash_attention ({variant}): {_fmt(t)} (library: SDPA), bound "
+        f"{b_ms:.5f} ms ({b_by}) at B={b} S={s} H={h} KV={kv} D={d} bf16 "
+        f"causal; the {cc_variant} kernel on the same inputs {cc_ms:.4f} ms "
+        "per call")
+    return dict(max_abs_err=worst[("prefill", "bfloat16", variant)],
+                bound_ms=b_ms, bound_by=b_by, variant=variant,
+                cuda_cores_ms=cc_ms, **t,
                 shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16 causal")
 
 
@@ -917,7 +1000,13 @@ def prefill_full(dev):
     model = Model(cfg, attn_impl="flash", device="cuda")
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     with torch.inference_mode():
-        res = measure_prefill(model, params, cfg, dev, "flash_attention")
+        res = measure_prefill(model, params, cfg, dev, "flash_attention",
+                              device_kernel="flash_attention_wgmma_kernel",
+                              absent="flash_attention_kernel")
+    if res["flash_variants"] != {"tensor_cores": cfg.num_layers,
+                                 "cuda_cores": 0}:
+        raise AssertionError(f"flash variants {res['flash_variants']}: want "
+                             "every launch on the tensor cores")
     del params
     torch.cuda.empty_cache()
     return res
@@ -950,14 +1039,18 @@ def _only(launches, kernel, want):
                              "and no other kernel")
 
 
-def measure_prefill(model, params, cfg, dev, kernel):
+def measure_prefill(model, params, cfg, dev, kernel, device_kernel=None,
+                    absent=None):
     """`Model.prefill` of B=PREFILL_B x S=PREFILL_S prompts: the launch
     counts are reset just before one prefill and read just after (exactly
     one `kernel` launch per layer and no other kernel), its logits must be
     finite [B, S, V]; then ms per prefill (median of 3) and one profiled
-    prefill (idle share, the kernel's share of device time, top kernels)."""
+    prefill (idle share, the kernel's share of device time, top kernels),
+    in which the device kernel named `device_kernel` (by default
+    `{kernel}_kernel`) must run once per layer and none named `absent`."""
     import torch
     from repro_torch.kernels import ops
+    device_kernel = device_kernel or f"{kernel}_kernel"
     batch = _prompts(cfg, dev, seed=0)
     n_tok = PREFILL_B * PREFILL_S
     torch.cuda.synchronize()
@@ -966,10 +1059,11 @@ def measure_prefill(model, params, cfg, dev, kernel):
     logits = model.prefill(params, batch)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
+    variants = dict(ops.flash_variants)
     shape = tuple(logits.shape)
     finite = bool(torch.isfinite(logits).all())
     del logits
-    log(f"{cfg.name} prefill launches: {launches}")
+    log(f"{cfg.name} prefill launches: {launches}; flash variants {variants}")
     _only(launches, kernel, cfg.num_layers)
     if shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or not finite:
         raise AssertionError(f"prefill logits {shape}, finite {finite}")
@@ -982,8 +1076,13 @@ def measure_prefill(model, params, cfg, dev, kernel):
     dev_ev, prof_ms = _profiled(lambda: model.prefill(params, batch))
     wall = float(np.median(walls))
     total_us = sum(e.time_range.elapsed_us() for e in dev_ev)
-    mine = [e for e in dev_ev if f"{kernel}_kernel" in e.name]
+    mine = [e for e in dev_ev if device_kernel in e.name]
     mine_us = sum(e.time_range.elapsed_us() for e in mine)
+    n_absent = sum(absent in e.name for e in dev_ev) if absent else 0
+    if len(mine) != cfg.num_layers or n_absent:
+        raise AssertionError(
+            f"the profiled prefill ran {len(mine)} {device_kernel} (want "
+            f"{cfg.num_layers}) and {n_absent} {absent} (want 0)")
     busy_us = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in dev_ev])
     by_name = collections.defaultdict(float)
@@ -996,7 +1095,8 @@ def measure_prefill(model, params, cfg, dev, kernel):
                device_ms_per_prefill=total_us / 1e3,
                device_busy_ms=busy_us / 1e3,
                device_idle_share=1 - busy_us / 1e3 / prof_ms,
-               kernel=kernel, kernel_launches_profiled=len(mine),
+               kernel=kernel, device_kernel=device_kernel,
+               kernel_launches_profiled=len(mine), flash_variants=variants,
                kernel_device_ms=mine_us / 1e3,
                kernel_device_share=mine_us / total_us,
                launches=launches, top_kernels_ms=dict(top),
@@ -1007,7 +1107,7 @@ def measure_prefill(model, params, cfg, dev, kernel):
         f"{[round(w, 1) for w in walls]}), {res['tok_per_s']:.0f} tok/s; "
         f"profiled: {prof_ms:.1f} ms, device {total_us / 1e3:.1f} ms, busy "
         f"{busy_us / 1e3:.1f} ms (idle share {res['device_idle_share']:.5f}), "
-        f"{kernel} {len(mine)} launches {mine_us / 1e3:.1f} ms = "
+        f"{device_kernel} {len(mine)} launches {mine_us / 1e3:.1f} ms = "
         f"{res['kernel_device_share']:.3f} of device time; peak device memory "
         f"{res['peak_device_bytes'] / 2**30:.2f} GiB; {len(dev_ev)} device "
         "kernels and copies")
@@ -1168,14 +1268,19 @@ def main() -> int:
 
     rows = []
     for kname, k in kernels.items():
-        rows.append({"name": kname, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
-                     "replaces": TPU_KERNEL[kname],
-                     "launches": main_launches[kname],
-                     **{key: k[key] for key in (
-                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms", "device_ms",
-                         "plain_device_ms", "library_device_ms")}})
+        row = {"name": kname, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+               "replaces": TPU_KERNEL[kname],
+               "launches": main_launches[kname],
+               **{key: k[key] for key in (
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms", "device_ms", "plain_device_ms",
+                   "library_device_ms")}}
+        if kname == "flash_attention":
+            # the variant the main path ran (phase 7 checks its name)
+            row.update(source=FLASH_SOURCES[k["variant"]],
+                       variant=k["variant"], cuda_cores_ms=k["cuda_cores_ms"])
+        rows.append(row)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({

@@ -1,12 +1,12 @@
 """Build the CUDA kernels in `csrc/` and load them with ctypes.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled on its own
-with `nvcc` for `sm_90a` into `build/kernels/<name>-<digest>.so` under the
-repository root (the digest covers the source and the flags, so an edited
-source is rebuilt). `build_all` starts one `nvcc` per source that is not
-built yet, all at once, and waits for them; the first kernel call builds
-whatever is missing. Nothing is built or loaded when this module is
-imported.
+Each `csrc/<name>.cu` has a plain C interface (one entry point, `name`)
+and is compiled on its own with `nvcc` for `sm_90a` into
+`build/kernels/<name>-<digest>.so` under the repository root (the digest
+covers the source and the flags, so an edited source is rebuilt).
+`build_all` starts one `nvcc` per source that is not built yet, all at
+once, and waits for them; the first kernel call builds whatever is
+missing. Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "access_scan", "migrate", "flash_attention",
-           "mamba_scan")
+           "flash_attention_wgmma", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +35,9 @@ _ARGTYPES = {
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I,
                         _I, _I, _P),
+    "flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.c_float, _I, _I, _P),
     "mamba_scan": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
 }
 

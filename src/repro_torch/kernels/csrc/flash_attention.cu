@@ -14,7 +14,7 @@
 // What bounds it on an H100: operations. At the chatglm3-6b prefill shape
 // (B=2, S=4096, H=32, KV=2, D=128, causal) a call does ~275 GFLOP against
 // ~143 MB of inputs and output, ~1900 flops per byte; in bf16 on the tensor
-// cores the bound is ~0.28 ms. This first version computes with fp32 FMAs on
+// cores the bound is ~0.28 ms. This kernel computes with fp32 FMAs on
 // the CUDA cores (67 TFLOP/s peak), so it cannot beat ~4.1 ms there.
 //
 // Design (simple and right first):
@@ -41,8 +41,10 @@
 //    has an unmasked key (the diagonal when causal, all later keys
 //    otherwise). Tiles are scheduled latest positions first, the longest.
 //
-// What it leaves on the table: tensor cores (mma.sync / wgmma on bf16),
-// TMA loads overlapped with compute, and keeping P in registers.
+// This is the CUDA-core variant: it takes float32 (whose 2e-5 tolerance
+// TF32 cannot hold), D in (128, 256] and views a TMA tensor map cannot
+// describe. bf16 inputs the tensor cores can take go to
+// flash_attention_wgmma.cu (the rule is `_flash_variant` in ops.py).
 #include <math.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -20,15 +20,22 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-# launches of each kernel since the last reset (the main path's evidence)
-launches: Dict[str, int] = {name: 0 for name in build.SOURCES}
+# launches of each wrapper's kernel since the last reset (the main path's
+# evidence); flash_attention's counts both of its variants
+launches: Dict[str, int] = {name: 0 for name in (
+    "paged_attention", "access_scan", "migrate", "flash_attention",
+    "mamba_scan")}
+# flash_attention's launches by variant (see `_flash_variant`)
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+flash_variants: Dict[str, int] = {TENSOR_CORES: 0, CUDA_CORES: 0}
 # dtype codes of the C entry points
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, flash_variants):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -49,13 +56,15 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _launch(name: str, *args) -> None:
-    """Calls the C entry point `name`, which launches on every call (the
-    wrappers never pass it empty inputs), and counts the launch."""
-    lib = build.lib(name)
-    rc = getattr(lib, name)(*args)
+def _launch(name: str, *args, entry: str = "") -> None:
+    """Calls the C entry point `entry` (by default `name`), which launches
+    on every call (the wrappers never pass it empty inputs), and counts the
+    launch as kernel `name`'s."""
+    entry = entry or name
+    lib = build.lib(entry)
+    rc = getattr(lib, entry)(*args)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel failed to launch: "
+        raise RuntimeError(f"{entry} kernel failed to launch: "
                            f"{lib.error_string(rc).decode()} (code {rc})")
     launches[name] += 1
 
@@ -190,13 +199,33 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 # flash_attention
 # ---------------------------------------------------------------------------
+def _flash_variant(dtype: torch.dtype, d: int, ptrs: Tuple[int, ...],
+                   strides: Tuple[int, ...]) -> str:
+    """The one rule that picks flash_attention's kernel for CUDA tensors.
+    `flash_attention_wgmma.cu` (TENSOR_CORES: wgmma, K/V by TMA) takes
+    bfloat16 with D <= 128 and D % 8 == 0 whose base pointers (`ptrs`) are
+    16-byte aligned and whose element strides other than D's (`strides`)
+    are positive multiples of 8, which is what a TMA tensor map can
+    describe. Everything else takes `flash_attention.cu` (CUDA_CORES): float32,
+    D in (128, 256], and views TMA cannot describe. The rule is decided
+    before the launch; nothing is tried and caught, and the kernel it picks
+    launches or raises."""
+    tma_ok = (all(p % 16 == 0 for p in ptrs)
+              and all(s > 0 and s % 8 == 0 for s in strides))
+    if dtype == torch.bfloat16 and d <= 128 and d % 8 == 0 and tma_ok:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, S, H, D]; k/v: [B, S, KV, D] -> [B, S, H, D] in q's dtype.
-    Each may be a strided view with unit stride along D (the kernel reads
+    Each may be a strided view with unit stride along D (the kernels read
     them where they lie: no GQA repeat, transpose or padding). The TPU
     kernel's shape contract holds on every device: S <= 128 or S a
-    multiple of 128 (its query block is min(128, S) and must divide S)."""
+    multiple of 128 (its query block is min(128, S) and must divide S).
+    `_flash_variant` picks the kernel; `launches["flash_attention"]` counts
+    both, `flash_variants` each."""
     _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
            "q: [B, S, H, D]; k/v: [B, S, KV, D]")
     b, s, h, d = q.shape
@@ -216,11 +245,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
-                                      *v.stride()[:3])
-    _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, s, h, kv, d, strides, d ** -0.5, int(causal),
-            window, _DTYPES[q.dtype], _stream())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    st = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    strides = (ctypes.c_longlong * 9)(*st)
+    args = (*ptrs, out.data_ptr(), b, s, h, kv, d, strides, d ** -0.5,
+            int(causal), window)
+    variant = _flash_variant(q.dtype, d, ptrs, st)
+    if variant == TENSOR_CORES:
+        _launch("flash_attention", *args, _stream(),
+                entry="flash_attention_wgmma")
+    else:
+        _launch("flash_attention", *args, _DTYPES[q.dtype], _stream())
+    flash_variants[variant] += 1
     return out
 
 

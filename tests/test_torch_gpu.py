@@ -17,6 +17,16 @@ PA_SHAPES = [(2, 8, 2, 16, 4, 6), (3, 4, 4, 32, 8, 4), (1, 8, 1, 64, 16, 3)]
 # flash_attention: tests/test_kernels.py's sweep (b, s, h, kv, d)
 FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 16)]
 FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
+# bf16 edges of the tensor-core flash kernel (b, s, h, kv, d, causal,
+# window): one partial key tile (S = 64, 100); rep = H/KV of 1, 3 (63-row
+# warpgroups) and 16; D = 16, 32, 64, 96, 128; windows 16, 64 and 200
+# across the 128-key tiles; non-causal
+FLASH_TC_EDGES = [
+    (2, 64, 4, 4, 64, True, 0), (2, 100, 6, 2, 32, True, 0),
+    (1, 100, 32, 2, 128, False, 0), (2, 256, 3, 1, 96, True, 0),
+    (1, 384, 6, 2, 16, True, 16), (1, 512, 32, 2, 128, True, 64),
+    (2, 384, 4, 4, 128, True, 200), (1, 256, 16, 1, 64, False, 64),
+    (1, 128, 9, 3, 96, False, 200), (2, 512, 16, 16, 32, True, 0)]
 
 
 def _flash_inputs(b, s, h, kv, d, seed):
@@ -173,6 +183,58 @@ def test_flash_attention_edge_cases(cuda):
     assert qt.stride(3) != 1
     with pytest.raises(ValueError, match="unit stride"):
         tops.flash_attention(qt, k, v)
+
+
+def _variant_run(fn):
+    """fn()'s result and the flash_attention variant it launched."""
+    before = dict(tops.flash_variants)
+    out = fn()
+    torch.cuda.synchronize()
+    ran = [k for k in before if tops.flash_variants[k] != before[k]]
+    assert len(ran) == 1 and tops.flash_variants[ran[0]] == before[ran[0]] + 1
+    return out, ran[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", FLASH_TC_EDGES)
+def test_flash_attention_tensor_core_edges(cuda, b, s, h, kv, d, causal,
+                                           window):
+    """bf16 at the tensor-core kernel's edges, within 2e-2 of the plain
+    version, and the dispatch rule picked that kernel."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _flash_inputs(b, s, h, kv, d, seed=s + d + window))
+    got, variant = _variant_run(
+        lambda: tops.flash_attention(q, k, v, causal=causal, window=window))
+    want = tref.flash_attention(q, k, v, causal=causal, window=window)
+    assert variant == tops.TENSOR_CORES
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, d)
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_views(cuda):
+    """bf16 q/k/v as strided views of a fused projection go to the tensor
+    cores through their strides; a view TMA cannot describe (a position
+    stride that is no multiple of 8 elements, a base 2 bytes past
+    alignment) goes to the CUDA cores; both match the plain version within
+    2e-2."""
+    b, s, h, kv, d = 2, 256, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    fused = torch.randn((b, s, (h + 2 * kv) * d), generator=g,
+                        device=cuda).bfloat16()
+    q = fused[..., :h * d].view(b, s, h, d)
+    k = fused[..., h * d:(h + kv) * d].view(b, s, kv, d)
+    v = fused[..., (h + kv) * d:].view(b, s, kv, d)
+    odd = torch.randn((b, s, h * d + 1), generator=g, device=cuda).bfloat16()
+    q_odd = odd[..., 1:].view(b, s, h, d)
+    assert q_odd.stride(1) % 8 != 0 and q_odd.data_ptr() % 16 != 0
+    for qq, want_variant in ((q, tops.TENSOR_CORES),
+                             (q_odd, tops.CUDA_CORES)):
+        got, variant = _variant_run(lambda: tops.flash_attention(qq, k, v))
+        want = tref.flash_attention(qq.contiguous(), k.contiguous(),
+                                    v.contiguous())
+        assert variant == want_variant
+        assert (got.float() - want.float()).abs().max().item() < 2e-2
 
 
 def _flat(tree, prefix=""):
