@@ -17,8 +17,11 @@ order:
      mamba_scan bit for bit in fp32 and bf16 inputs; flash_attention also
      at the bf16 edges of its tensor-core variant and on strided views,
      each case logged with the variant that ran: bf16 on the tensor
-     cores, fp32 and a view TMA cannot describe on the CUDA cores),
-     then timed beside its plain version, a one-call PyTorch yardstick
+     cores, fp32 and a view TMA cannot describe on the CUDA cores;
+     paged_attention at the serve shape with random lengths, at full
+     length and with edge lanes (length 0, a -1 hole inside the length, a
+     slot >= n_slots), and at REP 1-32 x D 16-256 x bt 4-16, each case
+     logged with the variant of its split kernel), then timed beside its plain version, a one-call PyTorch yardstick
      where one exists, and the least time the card could take (bound_ms),
      at the shape of its path: per call over back-to-back calls with CUDA
      events (`ms`, `plain_ms`, `library_ms`) and as device time from a
@@ -28,7 +31,8 @@ order:
      seeded generator), 8 lanes, max_len 512, 16-token blocks, 16 greedy
      requests; every kernel's launch count is reset just before and read
      just after, and the run must complete every request, launch each of
-     the three HADES kernels (and flash_attention never), migrate rows and
+     the three HADES kernels (and flash_attention never), run every
+     paged_attention launch on its tensor-core variant, migrate rows and
      end with KV RSS 0. CUDA's sync debug mode counts the synchronising
      operations of the run: none may fall inside a window and exactly one
      at each window's close;
@@ -36,7 +40,8 @@ order:
      torch.profiler on for two windows in mid-run; the device's busy and
      idle share of those windows' unprofiled wall time (from phase 4),
      kernels per step, host syncs and copies per window, and each HADES
-     kernel's device time per launch;
+     kernel's device time per launch (paged_attention: one split and one
+     combine kernel per layer and step, timed together);
   6. the kernel path against the plain path on the card at 2 layers and
      full width: a teacher-forced serve window (pool metadata exactly,
      logits within 5e-2), and a prefill of B=2 x S=4096 with
@@ -101,7 +106,9 @@ PREFILL_B, PREFILL_S = 2, 4096   # cut from prefill_32k (B=32, S=32768)
 DECODE_B, DECODE_PROMPT, DECODE_NEW = 8, 32, 32   # falcon-mamba decode
 DRIFT_S = 64       # tokens of the prefill-vs-decode comparisons
 TRACE_FROM = 6     # first of the two traced serve windows; lanes are full
-HADES_KERNELS = {"paged_attention": ("paged_attention_kernel",),
+# kernel names in the profiler's trace; the first name's launches count
+HADES_KERNELS = {"paged_attention": ("paged_attention_split",
+                                     "paged_attention_combine_kernel"),
                  "access_scan": ("access_scan_kernel",),
                  "migrate": ("gather_rows", "scatter_rows")}
 TPU_KERNEL = {
@@ -287,49 +294,97 @@ def check_migrate(dev, pcfg, budget):
                 shape=f"{n_ok} moves of {row_bytes} B rows")
 
 
-def _pa_inputs(g, dev, dtype, b, h, kv, d, bt, mb, n_slots):
+def _pa_inputs(g, dev, dtype, b, h, kv, d, bt, mb, n_slots, kind="random"):
+    """q, the pool [n_slots, 2, bt, KV, D], tables and lengths. kind:
+    "random" lengths in [1, bt * MB]; "full" (every lane at bt * MB);
+    "edges" (lane 0 of length 0, lane 1 at full length with a -1 hole,
+    lane 2 with a slot >= n_slots, clamped as XLA's gather clamps)."""
     import torch
     pool = torch.randn((n_slots, 2, bt, kv, d), generator=g).to(dev, dtype)
     q = torch.randn((b, h, d), generator=g).to(dev, dtype)
     lens = torch.randint(1, bt * mb + 1, (b,), generator=g, dtype=torch.int32)
+    if kind == "full":
+        lens[:] = bt * mb
     tables = torch.full((b, mb), -1, dtype=torch.int32)
     for i in range(b):
         used = -(-int(lens[i]) // bt)
         tables[i, :used] = torch.randperm(n_slots, generator=g)[:used].int()
+    if kind == "edges":
+        lens[0], lens[1] = 0, bt * mb - 1
+        tables[1] = torch.randperm(n_slots, generator=g)[:mb].int()
+        tables[1, mb // 2] = -1
+        tables[2, 0] = n_slots + 3
     return q, pool, tables.to(dev), lens.to(dev)
 
 
+def _pa_variant(dtype, rep, d):
+    """The paged_attention variant each phase-3 case must run: bf16 with
+    D % 16 == 0 and REP <= 16 (or D <= 128) on the tensor cores."""
+    import torch
+    from repro_torch.kernels import ops
+    if dtype == torch.bfloat16 and d % 16 == 0 and (rep <= 16 or d <= 128):
+        return ops.TENSOR_CORES
+    return ops.CUDA_CORES
+
+
 def check_paged_attention(dev, mc, kv_cfg, pcfg):
+    """Every case against the plain version (2e-5 fp32, 2e-2 bf16, access
+    bits exact), each logged with the split kernel's variant: the serve
+    shape with random lengths, at full length and with the edge lanes, in
+    both dtypes; the CPU tests' shapes; REP 1, 4, 8, 16, 32 x D 16, 64,
+    128, 256 x bt 4, 8, 16 in bf16 with the edge lanes (one page per split,
+    most splits of the short lanes empty). Then timed at the serve shape
+    (random lengths) beside the plain version, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator().manual_seed(3)
     main = (kv_cfg.batch, mc.num_heads, mc.num_kv_heads, mc.resolved_head_dim,
             kv_cfg.block_tokens, kv_cfg.max_blocks, pcfg.n_slots + 1)
-    cases = [(main, torch.bfloat16, 2e-2), ((2, 8, 2, 16, 4, 6, 32),
-                                            torch.float32, 2e-5),
-             ((2, 8, 2, 16, 4, 6, 32), torch.bfloat16, 2e-2),
-             ((3, 4, 4, 32, 8, 4, 32), torch.float32, 2e-5),
-             ((1, 8, 1, 64, 16, 3, 32), torch.float32, 2e-5)]
-    main_err = None
-    for shape, dtype, tol in cases:
-        q, pool, tables, lens = _pa_inputs(g, dev, dtype, *shape)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    cases = [(main, dtype, kind) for kind in ("random", "full", "edges")
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(shape, dtype, "random")
+              for shape in ((2, 8, 2, 16, 4, 6, 32), (3, 4, 4, 32, 8, 4, 32),
+                            (1, 8, 1, 64, 16, 3, 32))
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((4, 2 * rep, 2, d, bt, 6, 32), torch.bfloat16, "edges")
+              for rep in (1, 4, 8, 16, 32) for d in (16, 64, 128, 256)
+              for bt in (4, 8, 16)]
+    main_err, ran, worst = None, collections.Counter(), {}
+    for shape, dtype, kind in cases:
+        q, pool, tables, lens = _pa_inputs(g, dev, dtype, *shape, kind=kind)
         args = (q, pool[:, 0], pool[:, 1], tables, lens)
+        before = dict(ops.paged_variants)
         got_o, got_t = ops.paged_attention(*args)
         want_o, want_t = ref.paged_attention(*args)
         torch.cuda.synchronize()
+        variant = [k for k in before if ops.paged_variants[k] != before[k]]
         err = (got_o.float() - want_o.float()).abs().max().item()
-        if not err < tol or not torch.equal(got_t, want_t):
-            raise AssertionError(f"paged_attention {shape} {dtype}: "
-                                 f"err {err} (tol {tol})")
+        want_v = _pa_variant(dtype, shape[1] // shape[2], shape[3])
+        log(f"paged_attention {kind} {shape[:6]} {str(dtype)[6:]}: {variant}, "
+            f"max |err| {err:.3g}")
+        if variant != [want_v]:
+            raise AssertionError(f"paged_attention {shape} {dtype} ran "
+                                 f"{variant}, want {want_v}")
+        if not err < tols[dtype] or not torch.equal(got_t, want_t):
+            raise AssertionError(f"paged_attention {shape} {dtype} {kind}: "
+                                 f"err {err} (tol {tols[dtype]}) or touched")
+        if kind == "edges" and got_o[0].any():
+            raise AssertionError("a lane of length 0 did not get zeros")
         if main_err is None:
             main_err = err
-        log(f"paged_attention {shape[:6]} {str(dtype)[6:]}: max |err| "
-            f"{err:.3g} < {tol}, touched exact")
+        key = (str(dtype)[6:], want_v)
+        worst[key] = max(worst.get(key, 0.0), err)
+        ran[want_v] += 1
+        del q, pool, args
+    log(f"paged_attention: {len(cases)} cases within 2e-5 (fp32) / 2e-2 "
+        f"(bf16), access bits exact, {dict(ran)}; max |err| {worst}")
     q, pool, tables, lens = _pa_inputs(g, dev, torch.bfloat16, *main)
     args = (q, pool[:, 0], pool[:, 1], tables, lens)
     # yardstick: SDPA over the same K/V, already gathered contiguous
     b, h, kv, d, bt, mb, _ = main
+    variant = _pa_variant(torch.bfloat16, h // kv, d)
     safe = tables.clamp(min=0).long()
     rep = h // kv
     k = pool[safe, 0].reshape(b, mb * bt, kv, d).repeat_interleave(rep, 2) \
@@ -347,10 +402,12 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg):
     bytes_moved = (q.numel() * 2 * 2 + tokens * kv * d * 2 * 2
                    + tables.numel() * 5 + b * 4)
     b_ms, b_by = bound(bytes_moved, 4 * h * d * tokens, "bf16")
-    log(f"paged_attention: {_fmt(t)} (library: SDPA), bound {b_ms:.5f} ms "
-        f"at B={b} H={h} KV={kv} D={d} bt={bt} MB={mb}, {tokens} live "
-        f"tokens")
-    return dict(max_abs_err=main_err, bound_ms=b_ms, bound_by=b_by, **t,
+    n_splits, pps = ops._paged_splits(b, kv, mb, ops._n_sms(dev))
+    log(f"paged_attention ({variant}, {n_splits} splits of {pps} pages): "
+        f"{_fmt(t)} (library: SDPA), bound {b_ms:.5f} ms at B={b} H={h} "
+        f"KV={kv} D={d} bt={bt} MB={mb}, {tokens} live tokens")
+    return dict(max_abs_err=main_err, bound_ms=b_ms, bound_by=b_by,
+                variant=variant, n_splits=n_splits, **t,
                 shape=f"B={b} H={h} KV={kv} D={d} bt={bt} MB={mb} bf16")
 
 
@@ -604,6 +661,7 @@ def serve_full(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(ops.launches)
+    paged_variants = dict(ops.paged_variants)
     windows = len(srv.serve_log)
     moved = sum(r["moved_to_hot"] + r["moved_to_cold"] for r in srv.reports)
     n_tok = sum(len(r.tokens) for r in results)
@@ -616,7 +674,8 @@ def serve_full(dev):
         f"{srv.dispatches} dispatches, {moved:.0f} rows migrated, peak KV "
         f"RSS {peak_rss / 2**20:.1f} MiB, final {final_rss:.0f} B, peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"serve launches: {launches}")
+    log(f"serve launches: {launches}; paged_attention by variant: "
+        f"{paged_variants}")
     close = [watch["close"][i] for i in range(1, windows + 1)]
     log(f"serve syncs (CUDA sync debug mode): {sum(watch['inside'].values())}"
         f" inside windows, {sum(close)} at the {windows} window closes "
@@ -631,6 +690,11 @@ def serve_full(dev):
             raise AssertionError(f"{name} was not launched on the serve path")
     if launches["flash_attention"]:
         raise AssertionError("flash_attention launched on the serve path")
+    if paged_variants != {ops.TENSOR_CORES: launches["paged_attention"],
+                          ops.CUDA_CORES: 0}:
+        raise AssertionError(f"paged_attention ran {paged_variants} of "
+                             f"{launches['paged_attention']} launches; want "
+                             "every one on the tensor cores")
     if moved <= 0:
         raise AssertionError("no rows migrated over the run")
     if watch["inside"]:
@@ -647,6 +711,7 @@ def serve_full(dev):
                    params=n_params, syncs_inside_windows=0,
                    syncs_per_window_close=1,
                    syncs_between_windows=watch["between"],
+                   paged_attention_variants=paged_variants,
                    peak_device_bytes=torch.cuda.max_memory_allocated())
     summary["trace"] = trace_serve(srv, params, reqs, watch["starts"])
     del params, srv
@@ -743,11 +808,16 @@ def trace_serve(srv, params, reqs, starts):
         calls = sum(parts[0] in e.name for e in kernels)
         hades[kname] = dict(launches=calls,
                             device_ms_per_launch=us / 1e3 / max(calls, 1))
+        if kname == "paged_attention":
+            hades[kname]["combine_launches"] = sum(
+                parts[1] in e.name for e in kernels)
     steps = 2 * srv.cfg.collect_every
-    if hades["paged_attention"]["launches"] != steps * srv.kv_cfg.num_layers:
+    pa = hades["paged_attention"]
+    if not pa["launches"] == pa["combine_launches"] == \
+            steps * srv.kv_cfg.num_layers:
         raise AssertionError(f"the traced range holds {hades} launches, "
-                             f"not one paged_attention per layer of {steps} "
-                             "steps")
+                             "not one paged_attention split and one combine "
+                             f"per layer of {steps} steps")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     res = dict(windows=[TRACE_FROM, TRACE_FROM + 1], steps=steps,
                wall_ms_per_step=wall_us / 1e3 / steps,
@@ -768,7 +838,9 @@ def trace_serve(srv, params, reqs, starts):
         f"{res['copies_per_window']}")
     for kname, h in hades.items():
         log(f"  {kname}: {h['launches']} launches, "
-            f"{h['device_ms_per_launch']:.5f} ms device per launch")
+            f"{h['device_ms_per_launch']:.5f} ms device per launch"
+            + (" (split and combine kernels together)"
+               if kname == "paged_attention" else ""))
     for k, v in top:
         log(f"  {v / 1e3 / steps:9.4f} ms/step  {k[:100]}")
     return res
@@ -1280,6 +1352,9 @@ def main() -> int:
             # the variant the main path ran (phase 7 checks its name)
             row.update(source=FLASH_SOURCES[k["variant"]],
                        variant=k["variant"], cuda_cores_ms=k["cuda_cores_ms"])
+        if kname == "paged_attention":
+            # phase 4 checks that the serve path ran this variant only
+            row.update(variant=k["variant"])
         rows.append(row)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

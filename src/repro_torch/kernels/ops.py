@@ -21,19 +21,22 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 # launches of each wrapper's kernel since the last reset (the main path's
-# evidence); flash_attention's counts both of its variants
+# evidence); flash_attention's and paged_attention's count both of their
+# variants
 launches: Dict[str, int] = {name: 0 for name in (
     "paged_attention", "access_scan", "migrate", "flash_attention",
     "mamba_scan")}
-# flash_attention's launches by variant (see `_flash_variant`)
+# flash_attention's and paged_attention's launches by variant (see
+# `_flash_variant`, `_paged_variant`)
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 flash_variants: Dict[str, int] = {TENSOR_CORES: 0, CUDA_CORES: 0}
+paged_variants: Dict[str, int] = {TENSOR_CORES: 0, CUDA_CORES: 0}
 # dtype codes of the C entry points
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    for counts in (launches, flash_variants):
+    for counts in (launches, flash_variants, paged_variants):
         for name in counts:
             counts[name] = 0
 
@@ -148,7 +151,45 @@ def access_scan(table: torch.Tensor, ciw_threshold: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # paged_attention
 # ---------------------------------------------------------------------------
-_SMEM_LIMIT = 48 * 1024
+_SMEM_MAX = 232448          # what an H100 block can have (227 KB)
+_PAGED_WARPS = 4            # warps of a tensor-core split block, at most
+
+
+def _paged_variant(dtype: torch.dtype, rep: int, d: int,
+                   ptrs: Tuple[int, ...], slot_stride: int) -> str:
+    """The one rule that picks paged_attention's split kernel for CUDA
+    tensors. TENSOR_CORES (mma.sync, pages by 16-byte cp.async) takes
+    bfloat16 with D % 16 == 0, REP <= 16, or REP <= 32 with D <= 128 (a
+    warp's fp32 accumulator holds ceil(REP / 16) * 16 x D values, at most
+    128 a thread), whose q/k/v base pointers (`ptrs`) are 16-byte aligned and
+    whose slot stride is a multiple of 8 elements. Everything else takes
+    the CUDA-core kernel (CUDA_CORES): float32, other D and REP, views
+    cp.async cannot read. The rule is decided before the launch; nothing is
+    tried and caught, and the kernel it picks launches or raises."""
+    aligned = all(p % 16 == 0 for p in ptrs) and slot_stride % 8 == 0
+    if (dtype == torch.bfloat16 and d % 16 == 0 and d <= 256
+            and (rep <= 16 or (rep <= 32 and d <= 128)) and aligned):
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def _paged_splits(b: int, kv: int, mb: int, n_sms: int) -> Tuple[int, int]:
+    """(n_splits, pages per split) from static shapes only: about 2 blocks
+    per SM over the B * KV * n_splits grid, never more splits than pages.
+    seq_lens never decides it (reading it would sync the host and break
+    graph capture), so splits past a lane's length exit at once."""
+    n = max(1, min(mb, -(-2 * n_sms // max(b * kv, 1))))
+    pps = -(-mb // n)
+    return -(-mb // pps), pps
+
+
+def _paged_smem(variant: str, rep: int, d: int, bt: int, n_warps: int) -> int:
+    """Shared memory of the split kernel (`split_smem_bytes` in
+    csrc/paged_attention.cu computes the same)."""
+    if variant == TENSOR_CORES:
+        mt, ld, t = (2 if rep > 16 else 1), d + 8, -(-bt // 16) * 16
+        return 2 * ld * (mt * 16 + 4 * n_warps * t) + 8 * n_warps * mt * 16
+    return 4 * (rep * d + 2 * bt * d + rep * bt)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -159,7 +200,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     within a slot and sharing one slot stride (the pool's strided K and V
     views are taken as they are, never copied); block_tables: [B, MB]
     int32 slots (-1 unused); seq_lens: [B] int32. Returns (out [B, H, D]
-    in q's dtype, touched [B, MB] bool)."""
+    in q's dtype, touched [B, MB] bool). On CUDA: a split kernel over
+    `_paged_splits` ranges of pages (`_paged_variant` picks it;
+    `paged_variants` counts each) writes fp32 partials, and a combine
+    kernel merges them and writes the access bits; one launch counted.
+    No host sync, and a launch shape that depends on shapes only, so the
+    call can be captured in a CUDA graph."""
     if _on_cpu(q, k_pages, v_pages, block_tables, seq_lens):
         return ref.paged_attention(q, k_pages, v_pages, block_tables,
                                    seq_lens)
@@ -182,17 +228,36 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
            and seq_lens.is_contiguous(), "seq_lens: [B] int32")
     rep = h // kv
     _check(d <= 256 and rep <= 32, "kernel takes D <= 256 and H/KV <= 32")
-    smem = 4 * (rep * d + 2 * bt * d + rep * bt)
-    _check(smem <= _SMEM_LIMIT, f"tiles need {smem} B of shared memory")
+    slot_stride = k_pages.stride(0)
+    variant = _paged_variant(q.dtype, rep, d, (q.data_ptr(),
+                             k_pages.data_ptr(), v_pages.data_ptr()),
+                             slot_stride)
+    n_splits, pps = _paged_splits(b, kv, max(mb, 1), _n_sms(q.device))
+    n_warps = 1
+    if variant == TENSOR_CORES:
+        n_warps = min(_PAGED_WARPS, pps)
+        while n_warps > 1 and _paged_smem(variant, rep, d, bt,
+                                          n_warps) > _SMEM_MAX:
+            n_warps -= 1
+    smem = _paged_smem(variant, rep, d, bt, n_warps)
+    _check(smem <= _SMEM_MAX, f"tiles need {smem} B of shared memory")
     out = torch.empty_like(q)
     touched = torch.empty((b, mb), dtype=torch.bool, device=q.device)
     if b == 0 or kv == 0:
         return out, touched
+    part_m = torch.empty((b, kv, n_splits, rep), dtype=torch.float32,
+                         device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, kv, n_splits, rep, d), dtype=torch.float32,
+                           device=q.device)
     _launch("paged_attention", q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), touched.data_ptr(),
-            b, kv, rep, d, bt, mb, n_slots, k_pages.stride(0), d ** -0.5,
-            _DTYPES[q.dtype], _stream())
+            out.data_ptr(), touched.data_ptr(), part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(),
+            b, kv, rep, d, bt, mb, n_slots, slot_stride, d ** -0.5,
+            _DTYPES[q.dtype], int(variant == TENSOR_CORES), n_splits, pps,
+            n_warps, _stream())
+    paged_variants[variant] += 1
     return out, touched
 
 

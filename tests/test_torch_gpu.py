@@ -55,23 +55,145 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,h,kv,d,bt,mb",
-                         PA_SHAPES + [(8, 32, 2, 128, 16, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_attention_kernel_matches_plain(cuda, b, h, kv, d, bt, mb, dtype):
-    q, kp, vp, tables, lens = _pa_inputs(b, h, kv, d, bt, mb, seed=d)
-    pool = torch.from_numpy(np.stack([kp, vp], axis=1)).to(cuda, dtype)
-    args = (torch.from_numpy(q).to(cuda, dtype), pool[:, 0], pool[:, 1],
-            torch.from_numpy(tables).to(cuda), torch.from_numpy(lens).to(cuda))
-    n0 = tops.launches["paged_attention"]
+def _pa_edges(tables, lens, n_slots, bt, rng):
+    """In place, on lanes 0-2 of a batch of at least 4: lane 0 has length 0
+    (zeros out, no access bit), lane 1 a -1 hole inside its length, lane 2
+    a slot >= n_slots (clamped to the last slot, as XLA's gather clamps)."""
+    mb = tables.shape[1]
+    lens[0] = 0
+    lens[1] = bt * mb - 1
+    tables[1] = rng.choice(n_slots, mb, replace=False)
+    tables[1, mb // 2] = -1
+    lens[2] = max(int(lens[2]), 1)
+    tables[2, 0] = n_slots + 3
+
+
+def _pa_case(b, h, kv, d, bt, mb, seed, kind, dev, dtype):
+    """(q, k view, v view, tables, lens) on the card, K and V as strided
+    views of one pool [n_slots, 2, bt, KV, D] as kvcache.attend passes
+    them. kind: "random" lengths in [1, bt * MB), "full" (every lane at
+    bt * MB tokens) or "edges" (`_pa_edges`)."""
+    q, kp, vp, tables, lens = _pa_inputs(b, h, kv, d, bt, mb, seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "full":
+        lens[:] = bt * mb
+        tables = np.stack([rng.choice(kp.shape[0], mb, replace=False)
+                           for _ in range(b)]).astype(np.int32)
+    elif kind == "edges":
+        _pa_edges(tables, lens, kp.shape[0], bt, rng)
+    pool = torch.from_numpy(np.stack([kp, vp], axis=1)).to(dev, dtype)
+    return (torch.from_numpy(q).to(dev, dtype), pool[:, 0], pool[:, 1],
+            torch.from_numpy(tables).to(dev), torch.from_numpy(lens).to(dev))
+
+
+def _pa_check(args, dtype, want_variant):
+    """Runs the kernel once: one launch of the expected variant, out
+    within 2e-5 (fp32) / 2e-2 (bf16) of the plain version, access bits
+    exact."""
+    n0, v0 = tops.launches["paged_attention"], dict(tops.paged_variants)
     got_o, got_t = tops.paged_attention(*args)
     want_o, want_t = tref.paged_attention(*args)
     torch.cuda.synchronize()
     assert tops.launches["paged_attention"] == n0 + 1
+    assert tops.paged_variants[want_variant] == v0[want_variant] + 1
+    assert sum(tops.paged_variants.values()) == sum(v0.values()) + 1
     tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got_o.dtype == dtype
     assert (got_o.float() - want_o.float()).abs().max().item() < tol
     assert torch.equal(got_t, want_t)
+    return got_o, got_t
+
+
+def _pa_want(dtype, rep, d):
+    """The variant the dispatch rule must pick for aligned pool views."""
+    tc = dtype == torch.bfloat16 and d % 16 == 0 and (rep <= 16 or d <= 128)
+    return tops.TENSOR_CORES if tc else tops.CUDA_CORES
+
+
+PA_SERVE = (8, 32, 2, 128, 16, 32)   # chatglm3-6b's serve shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,d,bt,mb", PA_SHAPES + [PA_SERVE])
+@pytest.mark.parametrize("kind", ["random", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(cuda, b, h, kv, d, bt, mb,
+                                              kind, dtype):
+    args = _pa_case(b, h, kv, d, bt, mb, d, kind, cuda, dtype)
+    _pa_check(args, dtype, _pa_want(dtype, h // kv, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rep", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("bt", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_sweep(cuda, rep, d, bt, dtype):
+    """REP x D x bt with the edge lanes (length 0, a -1 hole, a clamped
+    slot) and a random one; B=4 x KV=2 over MB=6 pages runs one page per
+    split, so most splits of the short lanes are empty."""
+    b, kv, mb = 4, 2, 6
+    assert tops._paged_splits(b, kv, mb, 132) == (mb, 1)
+    args = _pa_case(b, rep * kv, kv, d, bt, mb, rep + d + bt, "edges", cuda,
+                    dtype)
+    out, touched = _pa_check(args, dtype, _pa_want(dtype, rep, d))
+    assert not out[0].any() and not touched[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_edges_at_serve_shape(cuda, dtype):
+    """The serve shape (16 splits of 2 pages, 2 warps a tensor-core block)
+    with the edge lanes."""
+    args = _pa_case(*PA_SERVE, 5, "edges", cuda, dtype)
+    out, _ = _pa_check(args, dtype, _pa_want(dtype, 16, 128))
+    assert not out[0].any()
+
+
+@pytest.mark.gpu
+def test_paged_attention_unaligned_pool_view(cuda):
+    """bf16 pages whose slot stride is no multiple of 8 elements (16-byte
+    cp.async cannot read them) go to the CUDA cores and match."""
+    b, h, kv, d, bt, mb = 4, 8, 2, 64, 8, 6
+    q, kp, vp, tables, lens = _pa_inputs(b, h, kv, d, bt, mb, seed=11)
+    n_slots, per = kp.shape[0], bt * kv * d
+    flat = torch.zeros(n_slots * (2 * per + 1), dtype=torch.bfloat16,
+                       device=cuda)
+    shape, stride = (n_slots, bt, kv, d), (2 * per + 1, kv * d, d, 1)
+    k = torch.as_strided(flat, shape, stride, 0)
+    v = torch.as_strided(flat, shape, stride, per)
+    k.copy_(torch.from_numpy(kp))
+    v.copy_(torch.from_numpy(vp))
+    args = (torch.from_numpy(q).to(cuda, torch.bfloat16), k, v,
+            torch.from_numpy(tables).to(cuda), torch.from_numpy(lens).to(cuda))
+    _pa_check(args, torch.bfloat16, tops.CUDA_CORES)
+
+
+@pytest.mark.gpu
+def test_paged_attention_cuda_graph(cuda):
+    """Captured once in a CUDA graph at the serve shape, then replayed after
+    q, seq_lens and block_tables change in place: the replay matches the
+    plain version on the new inputs (the launch shape depends on shapes
+    only, and the call never syncs the host)."""
+    args = _pa_case(*PA_SERVE, 21, "random", cuda, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tops.paged_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, touched = tops.paged_attention(*args)
+    new = _pa_case(*PA_SERVE, 22, "edges", cuda, torch.bfloat16)
+    for x, y in zip(args, new):
+        if x.dim() != 4:
+            x.copy_(y)
+    graph.replay()
+    torch.cuda.synchronize()
+    want_o, want_t = tref.paged_attention(*args)
+    assert (out.float() - want_o.float()).abs().max().item() < 2e-2
+    assert torch.equal(touched, want_t)
+    assert not out[0].any()
 
 
 @pytest.mark.gpu
