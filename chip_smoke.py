@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--access-scan-was PATH]
 
-Run from the root of a checkout (it puts `src` on sys.path itself). In
-order:
+Run from the root of a checkout (it puts `src` on sys.path itself). With
+--access-scan-was, phase 3 also builds an earlier `access_scan.cu` (its C
+entry without the scratch argument) and checks and times it beside the
+kernel. In order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port (`src/repro_torch/kernels/
@@ -18,14 +20,23 @@ order:
      at the bf16 edges of its tensor-core variant and on strided views,
      each case logged with the variant that ran: bf16 on the tensor
      cores, fp32 and a view TMA cannot describe on the CUDA cores;
-     paged_attention at the serve shape with random lengths, at full
-     length and with edge lanes (length 0, a -1 hole inside the length, a
-     slot >= n_slots), and at REP 1-32 x D 16-256 x bt 4-16, each case
-     logged with the variant of its split kernel), then timed beside its plain version, a one-call PyTorch yardstick
-     where one exists, and the least time the card could take (bound_ms),
-     at the shape of its path: per call over back-to-back calls with CUDA
-     events (`ms`, `plain_ms`, `library_ms`) and as device time from a
-     torch.profiler trace (`device_ms`, ...);
+     paged_attention at the serve shape and at granite's decode shape
+     (B=8 H=48 KV=1 D=128: REP 48, several blocks per KV head) with random
+     lengths, at full length and with edge lanes (length 0, a -1 hole
+     inside the length, a slot >= n_slots), and at REP 1-48 x D 16-256 x
+     bt 4-16, each case logged with the variant of its split kernel: bf16
+     on the tensor cores at every REP; access_scan also at n % 4 != 0, on
+     a table view off 16-byte alignment and at 2^20 words over 65536
+     superblocks), then timed beside its plain version, a one-call
+     PyTorch yardstick where one exists, and the least time the card
+     could take (bound_ms), at the shape of its path: per call over
+     back-to-back calls with CUDA events (`ms`, `plain_ms`, `library_ms`)
+     and as device time from a torch.profiler trace (`device_ms`, ...).
+     paged_attention is timed at granite's shape too and must take no
+     more device time there than SDPA; a profiled access_scan call must
+     be exactly one device operation (no memset), with the device
+     operations per call counted at the serve shape and, with L2 evicted
+     before each call, at 2^20 words, against the bound;
   4. the serving path: `Server.serve` with chatglm3-6b at its full
      published width and depth (28 layers, random bf16 weights from a
      seeded generator), 8 lanes, max_len 512, 16-token blocks, 16 greedy
@@ -39,9 +50,10 @@ order:
   5. where the serve time goes: the same requests served again with
      torch.profiler on for two windows in mid-run; the device's busy and
      idle share of those windows' unprofiled wall time (from phase 4),
-     kernels per step, host syncs and copies per window, and each HADES
-     kernel's device time per launch (paged_attention: one split and one
-     combine kernel per layer and step, timed together);
+     kernels per step, host syncs, copies and memsets per window, and
+     each HADES kernel's device time per launch (paged_attention: one
+     split and one combine kernel per layer and step, timed together;
+     access_scan: its one kernel);
   6. the kernel path against the plain path on the card at 2 layers and
      full width: a teacher-forced serve window (pool metadata exactly,
      logits within 5e-2), and a prefill of B=2 x S=4096 with
@@ -157,36 +169,16 @@ def cuda_time(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_time(fn, iters: int) -> float:
-    """Device ms per call of fn(): the summed durations of every kernel,
-    memset and copy in a torch.profiler trace of `iters` back-to-back calls
-    after one warm-up call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        raise AssertionError("the profiler recorded no device activity")
-    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters
-
-
 def timings(fn, iters: int, plain, plain_iters: int, library=None) -> dict:
     """The kernel's, its plain version's and the library call's time per
     call: CUDA events over back-to-back calls and profiler device time."""
-    out = dict(ms=cuda_time(fn, iters), device_ms=device_time(fn, iters),
+    out = dict(ms=cuda_time(fn, iters), device_ms=device_ops(fn, iters)[0],
                plain_ms=cuda_time(plain, plain_iters),
-               plain_device_ms=device_time(plain, plain_iters),
+               plain_device_ms=device_ops(plain, plain_iters)[0],
                library_ms=None, library_device_ms=None)
     if library is not None:
         out.update(library_ms=cuda_time(library, iters),
-                   library_device_ms=device_time(library, iters))
+                   library_device_ms=device_ops(library, iters)[0])
     return out
 
 
@@ -214,35 +206,186 @@ def _random_table(g, n, n_slots, dev):
     return ot.pack(*f).to(dev)
 
 
-def check_access_scan(dev, pcfg):
+SCAN_POOL = (1 << 20, 16, 65536)   # 16 GiB of 16 KiB objects: words,
+                                   # slots per superblock, superblocks
+L2_FLUSH_BYTES = 256 << 20         # five times the H100's 50 MB L2
+
+
+def device_ops(fn, iters: int, between=None):
+    """(device ms, device operations, their names) per call of fn(): the
+    summed durations of every kernel, memset and copy in a torch.profiler
+    trace of `iters` calls after one warm-up call, each call after
+    between() when given; between()'s own device operations (named from a
+    trace of it alone) are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda_t = torch.autograd.DeviceType.CUDA
+
+    def trace(f, n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                f()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == cuda_t]
+    skip = set()
+    if between is not None:
+        between()
+        skip = {e.name for e in trace(between, 1)}
+    fn()
+    torch.cuda.synchronize()
+
+    def step():
+        if between is not None:
+            between()
+        fn()
+    dev = [e for e in trace(step, iters) if e.name not in skip]
+    if not dev:
+        raise AssertionError("the profiler recorded no device activity")
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters,
+            len(dev) / iters, sorted({e.name[:60] for e in dev}))
+
+
+def _scan_was(path):
+    """access_scan(...) of an earlier access_scan.cu (its C entry without
+    the scratch: two memsets and the kernel), built from `path` with the
+    port's nvcc flags into build/; for comparing in one run."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build, ops
+    out = ROOT / "build" / "was" / "access_scan.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                    str(path)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.access_scan.argtypes = (P,) * 7 + (I,) * 5 + (P,)
+    lib.access_scan.restype = I
+
+    def call(table, ct, *, sb_slots, n_sbs, with_hist):
+        # the earlier wrapper's checks and its five outputs, so that its
+        # host cost compares with the wrapper's (it counts no launch)
+        ops._on_cpu(table, ct)
+        ops._check(table.dim() == 1 and table.dtype == torch.int32
+                   and table.is_contiguous(), "table: [N] int32 contiguous")
+        ops._check(ct.dtype == torch.float32 and ct.numel() == 1,
+                   "ciw_threshold: one float32")
+        ops._check(sb_slots > 0 and n_sbs >= 0, "sb_slots > 0, n_sbs >= 0")
+        n, dev = table.shape[0], table.device
+        outs = (torch.empty_like(table), torch.empty(n, dtype=torch.bool,
+                                                     device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev),
+                torch.empty(n_sbs, dtype=torch.int32, device=dev),
+                torch.empty((), dtype=torch.int32, device=dev))
+        rc = lib.access_scan(table.data_ptr(), ct.data_ptr(),
+                             *(x.data_ptr() for x in outs), n, sb_slots,
+                             n_sbs, int(with_hist), ops._n_sms(dev),
+                             ops._stream())
+        if rc:
+            raise RuntimeError(f"the earlier access_scan failed: {rc}")
+        return outs
+    return call
+
+
+def check_access_scan(dev, pcfg, was_source=None):
+    """Exact against the plain version at the serve shape, the CPU tests'
+    shapes, n % 4 != 0, a table view off 16-byte alignment (the scalar
+    pass) and 2^20 words over 65536 superblocks (`SCAN_POOL`: bins past
+    shared memory), each with and without the histogram. A profiled call
+    at the serve shape must be exactly one device operation, the kernel
+    (no memset). Timed at the serve shape (with_hist=False, the serve
+    path's call) beside the plain version, and with the histogram; at
+    SCAN_POOL with L2 evicted before each call, with and without the
+    histogram, against the bound. With `was_source` (an earlier
+    access_scan.cu), that kernel is checked and timed at the same shapes
+    in the same run."""
     import torch
     from repro_torch.kernels import ops, ref
     g = torch.Generator().manual_seed(1)
     ct = torch.tensor(2.0, device=dev)
-    shapes = [(pcfg.max_objects, pcfg.sb_slots, pcfg.n_sbs), (128, 8, 16),
-              (300, 16, 64)]
-    for n, sb, nsb in shapes:
+    serve = (pcfg.max_objects, pcfg.sb_slots, pcfg.n_sbs)
+    shapes = [serve, (128, 8, 16), (300, 16, 64), (1027, 8, 100),
+              SCAN_POOL]
+    tables = {}
+    for n, sb, nsb in shapes + [(1001, 16, 64)]:
         table = _random_table(g, n, sb * nsb, dev)
+        if n == 1001:   # 4 bytes past a 16-byte boundary
+            table = table[1:]
+        tables[(n, sb, nsb)] = table
+    was = _scan_was(was_source) if was_source else None
+    impls = {"kernel": ops.access_scan}
+    if was:
+        impls["was"] = was
+    for (n, sb, nsb), table in tables.items():
         for with_hist in (False, True):
-            got = ops.access_scan(table, ct, sb_slots=sb, n_sbs=nsb,
-                                  with_hist=with_hist)
-            want = ref.access_scan(table, ct, sb_slots=sb, n_sbs=nsb,
-                                   with_hist=with_hist)
-            torch.cuda.synchronize()
-            for x, y in zip(got, want):
-                if not torch.equal(x, y):
-                    raise AssertionError(
-                        f"access_scan differs at n={n} with_hist={with_hist}")
-    n = pcfg.max_objects
-    table = _random_table(g, n, pcfg.n_slots, dev)
-    kw = dict(sb_slots=pcfg.sb_slots, n_sbs=pcfg.n_sbs, with_hist=False)
+            kw = dict(sb_slots=sb, n_sbs=nsb, with_hist=with_hist)
+            want = ref.access_scan(table, ct, **kw)
+            for name, fn in impls.items():
+                got = fn(table, ct, **kw)
+                torch.cuda.synchronize()
+                if not all(map(torch.equal, got, want)):
+                    raise AssertionError(f"access_scan ({name}) differs at "
+                                         f"n={n} with_hist={with_hist}")
+    table = tables[serve]
+    per = {}
+    for name, fn in impls.items():
+        for with_hist in (False, True):
+            kw = dict(sb_slots=serve[1], n_sbs=serve[2], with_hist=with_hist)
+            call = (lambda f=fn, k=kw: f(table, ct, **k))
+            # operations counted in a short trace (a long one may drop
+            # events), time from a long one
+            _, n_ops, names = device_ops(call, 10)
+            per[(name, "serve", with_hist)] = dict(
+                device_ms=device_ops(call, 100)[0], device_ops=n_ops,
+                names=names)
+    one = [per[("kernel", "serve", h)] for h in (False, True)]
+    if any(o["device_ops"] != 1 or any("Memset" in x for x in o["names"])
+           for o in one):
+        raise AssertionError(f"access_scan is not one device operation a "
+                             f"call: {one}")
+    kw = dict(sb_slots=serve[1], n_sbs=serve[2], with_hist=False)
     t = timings(lambda: ops.access_scan(table, ct, **kw), 200,
                 lambda: ref.access_scan(table, ct, **kw), 50)
-    b_ms, b_by = bound(n * (4 + 4 + 1 + 1) + 8, 20 * n, "int32")
-    log(f"access_scan: exact at {[s[0] for s in shapes]} words, with and "
-        f"without hist; {_fmt(t)}, bound {b_ms:.7f} ms at N={n}")
+    if was:
+        t["was_ms"] = cuda_time(lambda: was(table, ct, **kw), 200)
+    n = serve[0]
+    b_ms, b_by = bound(n * (4 + 4 + 1 + 1) + 4 * serve[2] + 8, 20 * n,
+                       "int32")
+    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                            device=dev)
+
+    def flush():
+        flush_buf.fill_(1)
+    big = tables[SCAN_POOL]
+    n_big, sb_big, nsb_big = SCAN_POOL
+    pool_bound = bound(n_big * 10 + 4 * nsb_big + 8, 20 * n_big, "int32")[0]
+    for with_hist in (False, True):
+        kw_big = dict(sb_slots=sb_big, n_sbs=nsb_big, with_hist=with_hist)
+        for name, fn in impls.items():
+            call = (lambda f=fn, k=kw_big: f(big, ct, **k))
+            ms, n_ops, names = device_ops(call, 10, between=flush)
+            per[(name, "pool", with_hist)] = dict(
+                device_ms=ms, device_ops=n_ops, names=names,
+                bound_share=pool_bound / ms)
+    del flush_buf
+    for (name, where, with_hist), v in sorted(per.items()):
+        log(f"access_scan {name} at {where} "
+            f"({serve if where == 'serve' else SCAN_POOL}), with_hist="
+            f"{with_hist}: {v['device_ms']:.5f} ms device, "
+            f"{v['device_ops']:g} device operations a call {v['names']}"
+            + (f" (L2 evicted before each call), {v['bound_share']:.3f} of "
+               f"the {pool_bound:.5f} ms bound"
+               if where == "pool" else ""))
+    log(f"access_scan: exact at {list(tables)} words, with and without "
+        f"hist; {_fmt(t)}, bound {b_ms:.7f} ms at N={n}; back to back "
+        f"{t['ms']:.4f} ms a call (the wrapper's host cost)"
+        + (f"; the earlier kernel and wrapper (five torch.empty outputs) "
+           f"{t['was_ms']:.4f} ms a call" if was else ""))
     return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, **t,
-                shape=f"table [{n}] int32, n_sbs {pcfg.n_sbs}")
+                shape=f"table [{n}] int32, n_sbs {serve[2]}",
+                cases={f"{k[0]}/{k[1]}/hist={k[2]}": v
+                       for k, v in per.items()},
+                pool_bound_ms=pool_bound)
 
 
 def check_migrate(dev, pcfg, budget):
@@ -319,74 +462,26 @@ def _pa_inputs(g, dev, dtype, b, h, kv, d, bt, mb, n_slots, kind="random"):
 
 def _pa_variant(dtype, rep, d):
     """The paged_attention variant each phase-3 case must run: bf16 with
-    D % 16 == 0 and REP <= 16 (or D <= 128) on the tensor cores."""
+    D % 16 == 0 on the tensor cores, at any REP."""
     import torch
     from repro_torch.kernels import ops
-    if dtype == torch.bfloat16 and d % 16 == 0 and (rep <= 16 or d <= 128):
+    if dtype == torch.bfloat16 and d % 16 == 0 and d <= 256:
         return ops.TENSOR_CORES
     return ops.CUDA_CORES
 
 
-def check_paged_attention(dev, mc, kv_cfg, pcfg):
-    """Every case against the plain version (2e-5 fp32, 2e-2 bf16, access
-    bits exact), each logged with the split kernel's variant: the serve
-    shape with random lengths, at full length and with the edge lanes, in
-    both dtypes; the CPU tests' shapes; REP 1, 4, 8, 16, 32 x D 16, 64,
-    128, 256 x bt 4, 8, 16 in bf16 with the edge lanes (one page per split,
-    most splits of the short lanes empty). Then timed at the serve shape
-    (random lengths) beside the plain version, SDPA and the bound."""
+def _pa_timed(g, dev, shape):
+    """paged_attention at `shape` (bf16, random lengths) timed beside its
+    plain version, SDPA over the same K/V already gathered contiguous and
+    repeated to every query head, and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    g = torch.Generator().manual_seed(3)
-    main = (kv_cfg.batch, mc.num_heads, mc.num_kv_heads, mc.resolved_head_dim,
-            kv_cfg.block_tokens, kv_cfg.max_blocks, pcfg.n_slots + 1)
-    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-    cases = [(main, dtype, kind) for kind in ("random", "full", "edges")
-             for dtype in (torch.bfloat16, torch.float32)]
-    cases += [(shape, dtype, "random")
-              for shape in ((2, 8, 2, 16, 4, 6, 32), (3, 4, 4, 32, 8, 4, 32),
-                            (1, 8, 1, 64, 16, 3, 32))
-              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [((4, 2 * rep, 2, d, bt, 6, 32), torch.bfloat16, "edges")
-              for rep in (1, 4, 8, 16, 32) for d in (16, 64, 128, 256)
-              for bt in (4, 8, 16)]
-    main_err, ran, worst = None, collections.Counter(), {}
-    for shape, dtype, kind in cases:
-        q, pool, tables, lens = _pa_inputs(g, dev, dtype, *shape, kind=kind)
-        args = (q, pool[:, 0], pool[:, 1], tables, lens)
-        before = dict(ops.paged_variants)
-        got_o, got_t = ops.paged_attention(*args)
-        want_o, want_t = ref.paged_attention(*args)
-        torch.cuda.synchronize()
-        variant = [k for k in before if ops.paged_variants[k] != before[k]]
-        err = (got_o.float() - want_o.float()).abs().max().item()
-        want_v = _pa_variant(dtype, shape[1] // shape[2], shape[3])
-        log(f"paged_attention {kind} {shape[:6]} {str(dtype)[6:]}: {variant}, "
-            f"max |err| {err:.3g}")
-        if variant != [want_v]:
-            raise AssertionError(f"paged_attention {shape} {dtype} ran "
-                                 f"{variant}, want {want_v}")
-        if not err < tols[dtype] or not torch.equal(got_t, want_t):
-            raise AssertionError(f"paged_attention {shape} {dtype} {kind}: "
-                                 f"err {err} (tol {tols[dtype]}) or touched")
-        if kind == "edges" and got_o[0].any():
-            raise AssertionError("a lane of length 0 did not get zeros")
-        if main_err is None:
-            main_err = err
-        key = (str(dtype)[6:], want_v)
-        worst[key] = max(worst.get(key, 0.0), err)
-        ran[want_v] += 1
-        del q, pool, args
-    log(f"paged_attention: {len(cases)} cases within 2e-5 (fp32) / 2e-2 "
-        f"(bf16), access bits exact, {dict(ran)}; max |err| {worst}")
-    q, pool, tables, lens = _pa_inputs(g, dev, torch.bfloat16, *main)
+    q, pool, tables, lens = _pa_inputs(g, dev, torch.bfloat16, *shape)
     args = (q, pool[:, 0], pool[:, 1], tables, lens)
-    # yardstick: SDPA over the same K/V, already gathered contiguous
-    b, h, kv, d, bt, mb, _ = main
-    variant = _pa_variant(torch.bfloat16, h // kv, d)
-    safe = tables.clamp(min=0).long()
+    b, h, kv, d, bt, mb, _ = shape
     rep = h // kv
+    safe = tables.clamp(min=0).long()
     k = pool[safe, 0].reshape(b, mb * bt, kv, d).repeat_interleave(rep, 2) \
         .transpose(1, 2).contiguous()
     v = pool[safe, 1].reshape(b, mb * bt, kv, d).repeat_interleave(rep, 2) \
@@ -402,13 +497,90 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg):
     bytes_moved = (q.numel() * 2 * 2 + tokens * kv * d * 2 * 2
                    + tables.numel() * 5 + b * 4)
     b_ms, b_by = bound(bytes_moved, 4 * h * d * tokens, "bf16")
-    n_splits, pps = ops._paged_splits(b, kv, mb, ops._n_sms(dev))
-    log(f"paged_attention ({variant}, {n_splits} splits of {pps} pages): "
-        f"{_fmt(t)} (library: SDPA), bound {b_ms:.5f} ms at B={b} H={h} "
-        f"KV={kv} D={d} bt={bt} MB={mb}, {tokens} live tokens")
-    return dict(max_abs_err=main_err, bound_ms=b_ms, bound_by=b_by,
-                variant=variant, n_splits=n_splits, **t,
+    variant = _pa_variant(torch.bfloat16, rep, d)
+    groups, rg = ops._paged_groups(variant, rep, d)
+    n_splits, pps = ops._paged_splits(b, kv * groups, mb, ops._n_sms(dev))
+    log(f"paged_attention ({variant}, {n_splits} splits of {pps} pages, "
+        f"{groups} group(s) of {rg} heads): {_fmt(t)} (library: SDPA), bound "
+        f"{b_ms:.5f} ms at B={b} H={h} KV={kv} D={d} bt={bt} MB={mb}, "
+        f"{tokens} live tokens")
+    return dict(bound_ms=b_ms, bound_by=b_by, variant=variant,
+                n_splits=n_splits, groups=groups, group_heads=rg,
+                live_tokens=tokens, **t,
                 shape=f"B={b} H={h} KV={kv} D={d} bt={bt} MB={mb} bf16")
+
+
+def check_paged_attention(dev, mc, kv_cfg, pcfg):
+    """Every case against the plain version (2e-5 fp32, 2e-2 bf16, access
+    bits exact), each logged with the split kernel's variant: the serve
+    shape with random lengths, at full length and with the edge lanes, in
+    both dtypes; the same at granite's decode shape (H=48 over one KV head:
+    REP 48, several blocks per KV head); the CPU tests' shapes; REP 1, 4,
+    8, 16, 32, 40, 48 x D 16, 64, 128, 256 x bt 4, 8, 16 in bf16 with the
+    edge lanes (one page per split, most splits of the short lanes empty).
+    Then timed at the serve shape and at granite's (random lengths) beside
+    the plain version, SDPA and the bound; at granite's the kernel must be
+    no slower than SDPA in device time."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator().manual_seed(3)
+    main = (kv_cfg.batch, mc.num_heads, mc.num_kv_heads, mc.resolved_head_dim,
+            kv_cfg.block_tokens, kv_cfg.max_blocks, pcfg.n_slots + 1)
+    granite = (kv_cfg.batch, 48, 1, 128, kv_cfg.block_tokens,
+               kv_cfg.max_blocks, pcfg.n_slots + 1)
+    tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    cases = [(main, dtype, kind) for kind in ("random", "full", "edges")
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(shape, dtype, "random")
+              for shape in ((2, 8, 2, 16, 4, 6, 32), (3, 4, 4, 32, 8, 4, 32),
+                            (1, 8, 1, 64, 16, 3, 32), (2, 48, 1, 16, 4, 6, 32))
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((4, 2 * rep, 2, d, bt, 6, 32), torch.bfloat16, "edges")
+              for rep in (1, 4, 8, 16, 32, 40, 48) for d in (16, 64, 128, 256)
+              for bt in (4, 8, 16)]
+    cases += [(granite, dtype, kind) for kind in ("random", "full", "edges")
+              for dtype in (torch.bfloat16, torch.float32)]
+    main_err, ran, worst = None, collections.Counter(), {}
+    for shape, dtype, kind in cases:
+        q, pool, tables, lens = _pa_inputs(g, dev, dtype, *shape, kind=kind)
+        args = (q, pool[:, 0], pool[:, 1], tables, lens)
+        before = dict(ops.paged_variants)
+        got_o, got_t = ops.paged_attention(*args)
+        want_o, want_t = ref.paged_attention(*args)
+        torch.cuda.synchronize()
+        variant = [k for k in before if ops.paged_variants[k] != before[k]]
+        err = (got_o.float() - want_o.float()).abs().max().item()
+        rep_ = shape[1] // shape[2]
+        want_v = _pa_variant(dtype, rep_, shape[3])
+        groups = ops._paged_groups(want_v, rep_, shape[3])[0]
+        log(f"paged_attention {kind} {shape[:6]} {str(dtype)[6:]}: {variant}"
+            f"{f' x{groups} groups' if groups > 1 else ''}, max |err| "
+            f"{err:.3g}")
+        if variant != [want_v]:
+            raise AssertionError(f"paged_attention {shape} {dtype} ran "
+                                 f"{variant}, want {want_v}")
+        if not err < tols[dtype] or not torch.equal(got_t, want_t):
+            raise AssertionError(f"paged_attention {shape} {dtype} {kind}: "
+                                 f"err {err} (tol {tols[dtype]}) or touched")
+        if kind == "edges" and got_o[0].any():
+            raise AssertionError("a lane of length 0 did not get zeros")
+        if main_err is None:
+            main_err = err
+        key = (str(dtype)[6:], want_v, "REP>32" if rep_ > 32 else "REP<=32")
+        worst[key] = max(worst.get(key, 0.0), err)
+        ran[want_v] += 1
+        del q, pool, args
+    log(f"paged_attention: {len(cases)} cases within 2e-5 (fp32) / 2e-2 "
+        f"(bf16), access bits exact, {dict(ran)}; max |err| {worst}")
+    res = dict(max_abs_err=main_err, **_pa_timed(g, dev, main))
+    res["granite"] = _pa_timed(g, dev, granite)
+    gr = res["granite"]
+    if gr["variant"] != ops.TENSOR_CORES or \
+            not gr["device_ms"] <= gr["library_device_ms"]:
+        raise AssertionError(f"paged_attention at granite's shape: "
+                             f"{gr['variant']}, {gr['device_ms']} ms against "
+                             f"SDPA's {gr['library_device_ms']} ms")
+    return res
 
 
 # the CPU tests' sweep (tests/test_kernels.py): (b, s, h, kv, d) x masks
@@ -798,7 +970,7 @@ def trace_serve(srv, params, reqs, starts):
     syncs = collections.Counter(e.name for e in host_ev
                                 if "Synchronize" in e.name)
     copies = collections.Counter(e.name for e in dev
-                                 if e.name.startswith("Memcpy"))
+                                 if e.name.startswith(("Memcpy", "Memset")))
     by_name = collections.defaultdict(float)
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
@@ -826,6 +998,8 @@ def trace_serve(srv, params, reqs, starts):
                kernels_per_step=len(kernels) / steps,
                host_syncs_per_window={k: v / 2 for k, v in syncs.items()},
                copies_per_window={k: v / 2 for k, v in copies.items()},
+               memsets_per_window=sum(v for k, v in copies.items()
+                                      if k.startswith("Memset")) / 2,
                hades_kernels=hades,
                top_kernels_ms_per_step={k[:120]: v / 1e3 / steps
                                         for k, v in top})
@@ -834,7 +1008,7 @@ def trace_serve(srv, params, reqs, starts):
         f"busy {res['device_busy_ms_per_step']:.2f} ms/step, idle share "
         f"{res['device_idle_share']:.3f}, {res['kernels_per_step']:.0f} "
         f"kernels per step, host syncs per window "
-        f"{res['host_syncs_per_window']}, copies per window "
+        f"{res['host_syncs_per_window']}, copies and memsets per window "
         f"{res['copies_per_window']}")
     for kname, h in hades.items():
         log(f"  {kname}: {h['launches']} launches, "
@@ -1281,7 +1455,15 @@ def mamba_full(dev):
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one NVIDIA card.")
+    ap.add_argument("--access-scan-was", metavar="PATH",
+                    help="an earlier access_scan.cu (C entry without the "
+                    "scratch argument) to check and time beside the "
+                    "kernel in phase 3")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1321,7 +1503,7 @@ def main() -> int:
     from repro_torch.core.collector import CollectorConfig
     kernels = {
         "paged_attention": check_paged_attention(dev, mc, kv_cfg, pcfg),
-        "access_scan": check_access_scan(dev, pcfg),
+        "access_scan": check_access_scan(dev, pcfg, args.access_scan_was),
         "migrate": check_migrate(dev, pcfg, CollectorConfig().move_budget),
         "flash_attention": check_flash_attention(dev, mc),
         "mamba_scan": check_mamba_scan(dev, get_config("falcon-mamba-7b")),
@@ -1354,7 +1536,13 @@ def main() -> int:
                        variant=k["variant"], cuda_cores_ms=k["cuda_cores_ms"])
         if kname == "paged_attention":
             # phase 4 checks that the serve path ran this variant only
-            row.update(variant=k["variant"])
+            row.update(variant=k["variant"], granite={
+                key: k["granite"][key] for key in (
+                    "shape", "variant", "groups", "device_ms", "bound_ms",
+                    "library_device_ms")})
+        if kname == "access_scan":
+            row.update(device_ops_per_call=k["cases"][
+                "kernel/serve/hist=False"]["device_ops"])
         rows.append(row)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

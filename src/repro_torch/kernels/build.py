@@ -29,9 +29,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_float, _I,
-                        _I, _I, _I, _I, _P),
-    "access_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                        _I, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_float,
+                        _I, _I, _I, _I, _I, _P),
+    "access_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "migrate": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I,

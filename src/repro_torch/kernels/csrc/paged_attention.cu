@@ -18,15 +18,23 @@
 // call costs is latency: enough blocks in flight, short dependent chains.
 //
 // Design: split-KV decoding, then a combine pass.
-//  * Split kernel: one block per (split s, KV head h, lane b). Split s
-//    covers pages [s * pps, (s + 1) * pps); the wrapper picks n_splits from
-//    static shapes only (B, KV, MB and the SM count, never seq_lens, so no
-//    host sync and a launch shape a CUDA graph can capture): about
-//    2 * n_SMs blocks, 256 at the serve shape instead of 16. A block whose
-//    range starts at or past the lane's length writes an empty partial
-//    (m = NEG_INF, l = 0) and returns. Each block writes fp32 (m, l, the
-//    unnormalised acc[REP, D]) of its query group into scratch that the
-//    wrapper allocates.
+//  * Split kernel: one block per (split s, group g of KV head h, lane b):
+//    grid (n_splits, KV * G, B). Split s covers pages
+//    [s * pps, (s + 1) * pps); group g covers the query heads
+//    [g * RG, min(REP, (g + 1) * RG)) of KV head h. The wrapper picks
+//    n_splits (ops._paged_splits) and (G, RG) (ops._paged_groups) from
+//    static shapes only (B, KV, REP, D, MB and the SM count, never
+//    seq_lens, so no host sync and a launch shape a CUDA graph can
+//    capture): about 2 * n_SMs blocks, 256 at the serve shape instead of
+//    16. G = 1 unless the query group does not fit one block (the
+//    tensor-core kernel past REP 16, or 32 with D <= 128; the CUDA-core one
+//    past 32 heads): granite's REP 48 runs as three 16-head groups on the
+//    tensor cores, two of 24 on the CUDA cores, and each group reads the
+//    KV head's pages again, which a kernel bound by latency affords. A
+//    block whose range starts at or past the lane's length writes an empty
+//    partial (m = NEG_INF, l = 0) and returns. Each block writes fp32
+//    (m, l, the unnormalised acc[rows, D]) of its rows into scratch that
+//    the wrapper allocates, [B, KV, n_splits, REP] rows whatever G is.
 //  * Combine kernel: one block per (query row, KV head, lane) rescales the
 //    partials by exp(m_s - m_max), sums them and divides by max(l, 1e-30),
 //    reading the splits' acc with independent loads. A split
@@ -36,10 +44,12 @@
 //    alone would give exp(NEG_INF - NEG_INF) = 1 for each masked key of an
 //    all-masked split). The lane's first block writes its MB access bits,
 //    so they are exact also for pages no split read.
-//  * Tensor cores (bf16, D % 16 == 0, REP <= 16, or REP <= 32 with
-//    D <= 128): a KV head's query group is REP heads of one token, 16 on
-//    chatglm3-6b, exactly the M of mma.sync m16n8k16 (REP = 32 takes two
-//    m-tiles; rows past REP are zero). wgmma is not used: it needs 64 rows,
+//  * Tensor cores (bf16, D % 16 == 0, D <= 256, any REP): a block's rows
+//    are RG heads of one token (RG = REP = 16 on chatglm3-6b, 16 a group on
+//    granite), exactly the M of mma.sync m16n8k16 (RG in (16, 32], which
+//    needs D <= 128, takes two m-tiles; rows past RG are zero). A warp
+//    holds ceil(RG / 16) * 16 x D fp32 accumulators, at most 128 a thread,
+//    which is why larger groups are cut. wgmma is not used: it needs 64 rows,
 //    which would have to come from four lanes that read different pages.
 //    Each warp of a block takes every NW-th page of the split with its own
 //    (m, l, acc); Q and pages arrive by cp.async, 16 bytes a thread, into a
@@ -64,9 +74,10 @@
 //    elements so that ldmatrix's eight 16-byte rows fall in distinct
 //    banks. The warps merge their partials through shared memory.
 //  * CUDA cores (fp32 and every other input): the same split/combine
-//    grid; a block of REP warps, one per query head, stages each page's
-//    K/V in fp32 shared memory and takes the dot products with FMAs and a
-//    warp reduction.
+//    grid; a block of RG <= 32 warps, one per query head of its group,
+//    stages each page's K/V in fp32 shared memory and takes the dot
+//    products with FMAs and a warp reduction (warps past the group's last
+//    head, in a smaller last group, only help stage).
 //
 // The kernel this replaced ran one block per (lane, KV head) over
 // all of the lane's pages, one warp per query head, one token's dot
@@ -162,10 +173,21 @@ size_t fma_smem_bytes(int REP, int D, int BT) {
   return sizeof(float) * ((size_t)REP * D + 2 * (size_t)BT * D + (size_t)REP * BT);
 }
 
-// Shared memory of the split kernel (ops._paged_smem computes the same).
-size_t split_smem_bytes(int tensor_cores, int REP, int D, int BT, int NW) {
-  return tensor_cores ? mma_smem_bytes(REP > 16 ? 2 : 1, D, BT, NW)
-                      : fma_smem_bytes(REP, D, BT);
+// Shared memory of a split block of RG rows (ops._paged_smem computes the
+// same).
+size_t split_smem_bytes(int tensor_cores, int RG, int D, int BT, int NW) {
+  return tensor_cores ? mma_smem_bytes(RG > 16 ? 2 : 1, D, BT, NW)
+                      : fma_smem_bytes(RG, D, BT);
+}
+
+// The block's KV head and its rows [r0, r0 + nr) of that head's REP.
+struct Group {
+  int h, r0, nr;
+};
+__device__ __forceinline__ Group block_group(int REP, int RG) {
+  const int G = (REP + RG - 1) / RG;
+  const int h = blockIdx.y / G, r0 = (blockIdx.y - h * G) * RG;
+  return {h, r0, min(RG, REP - r0)};
 }
 
 // ---------------------------------------------------------------------------
@@ -178,10 +200,12 @@ paged_attention_split_mma_kernel(
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ tables,
     const int* __restrict__ lens, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc, int KV, int REP,
-    int D, int BT, int MB, int PPS, int n_slots, long long slot_stride,
-    float scale) {
+    int RG, int D, int BT, int MB, int PPS, int n_slots,
+    long long slot_stride, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z, S = gridDim.x;
+  const Group grp = block_group(REP, RG);
+  const int h = grp.h, r0 = grp.r0, NR = grp.nr;
+  const int s = blockIdx.x, b = blockIdx.z, S = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int NW = blockDim.x >> 5;
   const int page0 = s * PPS;
@@ -190,8 +214,8 @@ paged_attention_split_mma_kernel(
   const int len = lens[b];
   const int slot0 = page0 + warp < MB ? row[page0 + warp] : -1;
   if (page0 * BT >= len) {  // covers len <= 0 too
-    for (int r = tid; r < REP; r += blockDim.x) {
-      const long long i = part_row(b, h, s, r, KV, S, REP);
+    for (int r = tid; r < NR; r += blockDim.x) {
+      const long long i = part_row(b, h, s, r0 + r, KV, S, REP);
       part_m[i] = NEG_INF;
       part_l[i] = 0.f;
     }
@@ -207,17 +231,17 @@ paged_attention_split_mma_kernel(
   __nv_bfloat16* mine = rings + warp * ring;  // [stage][K|V][T][LD]
   float* ml = reinterpret_cast<float*>(rings + NW * ring);  // [NW][2][MT*16]
 
-  // Q by cp.async, zero past REP; this warp's pad rows [BT, T) of every
-  // tile zero
+  // the group's Q rows by cp.async, zero past NR; this warp's pad rows
+  // [BT, T) of every tile zero
   const int chunks = D / 8;  // 16-byte pieces of a row
-  const __nv_bfloat16* qb = q + ((long long)b * KV + h) * REP * D;
+  const __nv_bfloat16* qb = q + (((long long)b * KV + h) * REP + r0) * D;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < REP * chunks; i += blockDim.x) {
+  for (int i = tid; i < NR * chunks; i += blockDim.x) {
     const int r = i / chunks, c = i - r * chunks;
     cp_async16(smem_addr(qs + r * LD + c * 8), qb + (long long)r * D + c * 8);
   }
-  for (int i = tid; i < (MT * 16 - REP) * D; i += blockDim.x)
-    qs[(REP + i / D) * LD + i % D] = zero;
+  for (int i = tid; i < (MT * 16 - NR) * D; i += blockDim.x)
+    qs[(NR + i / D) * LD + i % D] = zero;
   for (int i = lane; i < 4 * (T - BT) * D; i += 32) {
     const int tile = i / ((T - BT) * D), rest = i - tile * (T - BT) * D;
     const int t = BT + rest / D, d = rest % D;
@@ -367,7 +391,7 @@ paged_attention_split_mma_kernel(
       l_run[mt][hr] = l;
     }
   cp_async_wait<0>();
-  const long long pr0 = part_row(b, h, s, 0, KV, S, REP);
+  const long long pr0 = part_row(b, h, s, r0, KV, S, REP);
   float* out_acc = part_acc + pr0 * D;
   if (NW == 1) {  // the warp's partial is the block's: straight from registers
 #pragma unroll
@@ -375,7 +399,7 @@ paged_attention_split_mma_kernel(
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = mt * 16 + g + 8 * hr;
-        if (r >= REP) continue;
+        if (r >= NR) continue;
         if (qd == 0) {
           part_m[pr0 + r] = m_run[mt][hr];
           part_l[pr0 + r] = l_run[mt][hr];
@@ -419,7 +443,7 @@ paged_attention_split_mma_kernel(
       }
       // a warp that saw no valid key adds nothing (its acc is 0)
       const float wt = l_run[mt][hr] > 0.f ? expf(m_run[mt][hr] - mm) : 0.f;
-      if (warp == 0 && qd == 0 && r < REP) {
+      if (warp == 0 && qd == 0 && r < NR) {
         part_m[pr0 + r] = mm;
         part_l[pr0 + r] = l;
       }
@@ -432,7 +456,7 @@ paged_attention_split_mma_kernel(
   __syncthreads();
   const float4* a4 = reinterpret_cast<const float4*>(accs);
   float4* o4 = reinterpret_cast<float4*>(out_acc);
-  const int n4 = REP * D / 4, slice4 = R * D / 4;
+  const int n4 = NR * D / 4, slice4 = R * D / 4;
   for (int i = tid; i < n4; i += blockDim.x) {
     float4 sum = a4[i];
     for (int w = 1; w < NW; ++w) {
@@ -451,21 +475,24 @@ __global__ void paged_attention_split_fma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ tables, const int* __restrict__ lens,
     float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int KV, int REP, int D, int BT, int MB,
-    int PPS, int n_slots, long long slot_stride, float scale) {
+    float* __restrict__ part_acc, int KV, int REP, int RG, int D, int BT,
+    int MB, int PPS, int n_slots, long long slot_stride, float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;          // [REP, D]
-  float* ks = qs + REP * D;  // [BT, D]
+  float* qs = smem;          // [RG, D]
+  float* ks = qs + RG * D;   // [BT, D]
   float* vs = ks + BT * D;   // [BT, D]
-  float* ps = vs + BT * D;   // [REP, BT] scores of the current page
+  float* ps = vs + BT * D;   // [RG, BT] scores of the current page
 
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z, S = gridDim.x;
+  const Group grp = block_group(REP, RG);
+  const int h = grp.h, NR = grp.nr;
+  const int s = blockIdx.x, b = blockIdx.z, S = gridDim.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool mine = warp < NR;  // a warp past the group's rows only stages
   const int len = lens[b];
   const int page0 = s * PPS;
-  const long long pr = part_row(b, h, s, warp, KV, S, REP);
+  const long long pr = part_row(b, h, s, grp.r0 + warp, KV, S, REP);
   if (page0 * BT >= len) {
-    if (lane == 0) {
+    if (lane == 0 && mine) {
       part_m[pr] = NEG_INF;
       part_l[pr] = 0.f;
     }
@@ -473,8 +500,8 @@ __global__ void paged_attention_split_fma_kernel(
   }
   const int p_end = min(min(page0 + PPS, MB), (len + BT - 1) / BT);
   const int* row = tables + (long long)b * MB;
-  const T* qb = q + ((long long)b * KV + h) * REP * D;
-  for (int i = threadIdx.x; i < REP * D; i += blockDim.x) qs[i] = to_f(qb[i]);
+  const T* qb = q + (((long long)b * KV + h) * REP + grp.r0) * D;
+  for (int i = threadIdx.x; i < NR * D; i += blockDim.x) qs[i] = to_f(qb[i]);
 
   float m = NEG_INF, l = 0.f;
   float acc[PER_LANE];
@@ -494,6 +521,7 @@ __global__ void paged_attention_split_fma_kernel(
       vs[i] = to_f(v[off]);
     }
     __syncthreads();
+    if (!mine) continue;
 
     const int n_valid = min(BT, len - j * BT);
     const float* qr = qs + warp * D;
@@ -525,6 +553,7 @@ __global__ void paged_attention_split_fma_kernel(
     m = m_new;
   }
 
+  if (!mine) return;
 #pragma unroll
   for (int i = 0; i < PER_LANE; ++i) {
     const int d = lane + 32 * i;
@@ -625,32 +654,34 @@ template <int DMAX, int MT>
 cudaError_t launch_mma(dim3 grid, int nw, size_t smem, cudaStream_t st,
                        const void* q, const void* k, const void* v,
                        const int* tables, const int* lens, float* pm, float* pl,
-                       float* pacc, int KV, int REP, int D, int BT, int MB,
-                       int PPS, int n_slots, long long slot_stride, float scale) {
+                       float* pacc, int KV, int REP, int RG, int D, int BT,
+                       int MB, int PPS, int n_slots, long long slot_stride,
+                       float scale) {
   static size_t done = 0;
   auto kernel = paged_attention_split_mma_kernel<DMAX, MT>;
   const cudaError_t e = allow_smem(kernel, smem, done);
   if (e != cudaSuccess) return e;
   kernel<<<grid, 32 * nw, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      tables, lens, pm, pl, pacc, KV, REP, D, BT, MB, PPS, n_slots,
+      tables, lens, pm, pl, pacc, KV, REP, RG, D, BT, MB, PPS, n_slots,
       slot_stride, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_fma(dim3 grid, int REP, size_t smem, cudaStream_t st,
+cudaError_t launch_fma(dim3 grid, size_t smem, cudaStream_t st,
                        const void* q, const void* k, const void* v,
                        const int* tables, const int* lens, float* pm, float* pl,
-                       float* pacc, int KV, int D, int BT, int MB, int PPS,
-                       int n_slots, long long slot_stride, float scale) {
+                       float* pacc, int KV, int REP, int RG, int D, int BT,
+                       int MB, int PPS, int n_slots, long long slot_stride,
+                       float scale) {
   static size_t done = 0;
   auto kernel = paged_attention_split_fma_kernel<T>;
   const cudaError_t e = allow_smem(kernel, smem, done);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, 32 * REP, smem, st>>>(
+  kernel<<<grid, 32 * RG, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, tables, lens, pm, pl, pacc, KV,
-      REP, D, BT, MB, PPS, n_slots, slot_stride, scale);
+      REP, RG, D, BT, MB, PPS, n_slots, slot_stride, scale);
   return cudaGetLastError();
 }
 
@@ -659,44 +690,50 @@ cudaError_t launch_fma(dim3 grid, int REP, size_t smem, cudaStream_t st,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. tensor_cores: 1 = the mma split kernel
-// (bf16, D % 16 == 0, D <= 256, REP <= 32 and REP <= 16 when D > 128;
-// q, k and v bases and the slot stride 16-byte aligned), 0 = the CUDA-core
-// one. The caller passes B, KV > 0, n_splits * pps >= MB, and part_m / part_l
-// [B, KV, n_splits, REP] and part_acc [B, KV, n_splits, REP, D] fp32
-// scratch. Launches the split kernel, then the combine kernel, on
-// `stream`; returns the first launch error (cudaGetLastError after each).
+// (bf16, D % 16 == 0, D <= 256, RG <= 32 and RG <= 16 when D > 128; q, k
+// and v bases and the slot stride 16-byte aligned), 0 = the CUDA-core one
+// (RG <= 32). Each KV head's REP >= 1 query heads go to G = ceil(REP / RG)
+// blocks of at most RG heads (ops._paged_groups). The caller passes
+// B, KV > 0, n_splits * pps >= MB, and part_m / part_l [B, KV, n_splits,
+// REP] and part_acc [B, KV, n_splits, REP, D] fp32 scratch. Launches the
+// split kernel, then the combine kernel, on `stream`; returns the first
+// launch error (cudaGetLastError after each).
 int paged_attention(const void* q, const void* k, const void* v,
                     const int* tables, const int* lens, void* out,
                     unsigned char* touched, float* part_m, float* part_l,
-                    float* part_acc, int B, int KV, int REP, int D, int BT,
-                    int MB, int n_slots, long long slot_stride, float scale,
-                    int dtype, int tensor_cores, int n_splits, int pps,
-                    int n_warps, void* stream) {
+                    float* part_acc, int B, int KV, int REP, int RG, int D,
+                    int BT, int MB, int n_slots, long long slot_stride,
+                    float scale, int dtype, int tensor_cores, int n_splits,
+                    int pps, int n_warps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(n_splits, KV, B);
-  const size_t smem = split_smem_bytes(tensor_cores, REP, D, BT, n_warps);
+  if (REP < 1 || RG < 1 || RG > 32 || RG > REP || D > MAX_D)
+    return (int)cudaErrorInvalidValue;
+  const long long groups = (long long)KV * ((REP + RG - 1) / RG);
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_splits, (unsigned)groups, B);
+  const size_t smem = split_smem_bytes(tensor_cores, RG, D, BT, n_warps);
   cudaError_t e;
   if (tensor_cores) {
-    if (dtype != 1 || D % 16 != 0 || D > MAX_D || REP > 32 ||
-        (REP > 16 && D > 128) || n_warps < 1 || n_warps > MMA_WARPS_MAX)
+    if (dtype != 1 || D % 16 != 0 || (RG > 16 && D > 128) || n_warps < 1 ||
+        n_warps > MMA_WARPS_MAX)
       return (int)cudaErrorInvalidValue;
 #define PA_MMA(DM, MT)                                                       \
   launch_mma<DM, MT>(grid, n_warps, smem, st, q, k, v, tables, lens, part_m, \
-                     part_l, part_acc, KV, REP, D, BT, MB, pps, n_slots,     \
+                     part_l, part_acc, KV, REP, RG, D, BT, MB, pps, n_slots, \
                      slot_stride, scale)
-    if (REP > 16)
+    if (RG > 16)
       e = D <= 64 ? PA_MMA(64, 2) : PA_MMA(128, 2);
     else
       e = D <= 64 ? PA_MMA(64, 1) : D <= 128 ? PA_MMA(128, 1) : PA_MMA(256, 1);
 #undef PA_MMA
   } else if (dtype == 1) {
-    e = launch_fma<__nv_bfloat16>(grid, REP, smem, st, q, k, v, tables, lens,
-                                  part_m, part_l, part_acc, KV, D, BT, MB, pps,
-                                  n_slots, slot_stride, scale);
+    e = launch_fma<__nv_bfloat16>(grid, smem, st, q, k, v, tables, lens,
+                                  part_m, part_l, part_acc, KV, REP, RG, D, BT,
+                                  MB, pps, n_slots, slot_stride, scale);
   } else {
-    e = launch_fma<float>(grid, REP, smem, st, q, k, v, tables, lens, part_m,
-                          part_l, part_acc, KV, D, BT, MB, pps, n_slots,
-                          slot_stride, scale);
+    e = launch_fma<float>(grid, smem, st, q, k, v, tables, lens, part_m,
+                          part_l, part_acc, KV, REP, RG, D, BT, MB, pps,
+                          n_slots, slot_stride, scale);
   }
   if (e != cudaSuccess) return (int)e;
   const dim3 cgrid(REP, KV, B);

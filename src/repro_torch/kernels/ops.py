@@ -2,7 +2,8 @@
 
 Each wrapper takes the plain version in `ref.py` when its tensors lie on
 the CPU, and only then. For CUDA tensors it checks device, dtype, shape
-and contiguity, allocates outputs and scratch with `torch.empty`, launches
+and contiguity, allocates outputs and scratch with `torch.empty`
+(access_scan keeps a zeroed scratch per stream instead), launches
 its kernel on the current stream (building it at first use, see
 `build.py`), raises if the launch reports an error, and adds one to its
 count in `launches`. Empty inputs return before the C entry point, which
@@ -113,13 +114,52 @@ def migrate(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 # ---------------------------------------------------------------------------
 # access_scan
 # ---------------------------------------------------------------------------
+def _scan_layout(n: int, n_sbs: int) -> Tuple[Dict[str, int], int]:
+    """Byte offsets of access_scan's outputs in the one buffer a call
+    allocates, and its size: new_table (4n bytes), hist (4 * n_sbs),
+    skipped (4), to_hot (n), to_cold (n), each at a 16-byte-aligned offset
+    so that the kernel's vector stores stay aligned."""
+    offsets, at = {}, 0
+    for name, size in (("new_table", 4 * n), ("hist", 4 * n_sbs),
+                       ("skipped", 4), ("to_hot", n), ("to_cold", n)):
+        offsets[name] = at
+        at += -(-size // 16) * 16
+    return offsets, at
+
+
+def _scan_outputs(n: int, n_sbs: int, dev: torch.device
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(new_table [n] int32, to_hot [n] bool, to_cold [n] bool, hist
+    [n_sbs] int32, skipped [] int32), uninitialised views of ONE buffer
+    laid out by `_scan_layout` (every offset a multiple of 16 bytes)."""
+    off, size = _scan_layout(n, n_sbs)
+    buf = torch.empty(size // 4, dtype=torch.int32, device=dev)
+    h, m = off["hist"] // 4, off["to_hot"] // 4
+    masks = buf[m:].view(torch.bool)
+    c = off["to_cold"] - off["to_hot"]
+    return (buf[:n], masks[:n], masks[c:c + n], buf[h:h + n_sbs],
+            buf[off["skipped"] // 4])
+
+
+# access_scan's zeroed scratch [ticket and count as one u64 | 2 pad words |
+# n_sbs bins] int32, one per (device, stream, n_sbs); the kernel leaves it
+# zero after every call
+_scan_scratch: Dict[Tuple[int, int, int], torch.Tensor] = {}
+
+
 def access_scan(table: torch.Tensor, ciw_threshold: torch.Tensor, *,
                 sb_slots: int, n_sbs: int, with_hist: bool = True
                 ) -> Tuple[torch.Tensor, ...]:
     """table: [N] int32 words; ciw_threshold: [] float32 (read on the
     device). Returns (new_table [N] int32, to_hot [N] bool, to_cold [N]
     bool, hist [n_sbs] int32 — zeros when with_hist is False, skipped []
-    int32)."""
+    int32). On CUDA the five are views of one buffer (`_scan_layout`), and
+    a call is one kernel launch and no other device operation: it keeps
+    its partial sums in a scratch of its stream that the wrapper zeroes
+    once, when the stream first calls it, and the kernel leaves zero. A
+    call captured in a CUDA graph is one kernel node if its stream has
+    called it before the capture (else the capture also holds the
+    scratch's one zeroing)."""
     if _on_cpu(table, ciw_threshold):
         return ref.access_scan(table, ciw_threshold, sb_slots=sb_slots,
                                n_sbs=n_sbs, with_hist=with_hist)
@@ -135,16 +175,18 @@ def access_scan(table: torch.Tensor, ciw_threshold: torch.Tensor, *,
                 torch.zeros(0, dtype=torch.bool, device=dev),
                 torch.zeros(n_sbs, dtype=torch.int32, device=dev),
                 torch.zeros((), dtype=torch.int32, device=dev))
-    new_table = torch.empty_like(table)
-    to_hot = torch.empty(n, dtype=torch.bool, device=dev)
-    to_cold = torch.empty(n, dtype=torch.bool, device=dev)
-    hist = torch.empty(n_sbs, dtype=torch.int32, device=dev)
-    skipped = torch.empty((), dtype=torch.int32, device=dev)
-    n_sms = _n_sms(dev)
+    new_table, to_hot, to_cold, hist, skipped = _scan_outputs(n, n_sbs, dev)
+    stream = _stream()
+    key = (dev.index, stream, n_sbs)
+    scratch = _scan_scratch.get(key)
+    if scratch is None:
+        scratch = _scan_scratch[key] = torch.zeros(n_sbs + 4,
+                                                   dtype=torch.int32,
+                                                   device=dev)
     _launch("access_scan", table.data_ptr(), ciw_threshold.data_ptr(),
             new_table.data_ptr(), to_hot.data_ptr(), to_cold.data_ptr(),
-            hist.data_ptr(), skipped.data_ptr(), n, sb_slots, n_sbs,
-            int(with_hist), n_sms, _stream())
+            hist.data_ptr(), skipped.data_ptr(), scratch.data_ptr(), n,
+            sb_slots, n_sbs, int(with_hist), _n_sms(dev), stream)
     return new_table, to_hot, to_cold, hist, skipped
 
 
@@ -159,23 +201,39 @@ def _paged_variant(dtype: torch.dtype, rep: int, d: int,
                    ptrs: Tuple[int, ...], slot_stride: int) -> str:
     """The one rule that picks paged_attention's split kernel for CUDA
     tensors. TENSOR_CORES (mma.sync, pages by 16-byte cp.async) takes
-    bfloat16 with D % 16 == 0, REP <= 16, or REP <= 32 with D <= 128 (a
-    warp's fp32 accumulator holds ceil(REP / 16) * 16 x D values, at most
-    128 a thread), whose q/k/v base pointers (`ptrs`) are 16-byte aligned and
-    whose slot stride is a multiple of 8 elements. Everything else takes
-    the CUDA-core kernel (CUDA_CORES): float32, other D and REP, views
-    cp.async cannot read. The rule is decided before the launch; nothing is
-    tried and caught, and the kernel it picks launches or raises."""
+    bfloat16 with D % 16 == 0 and D <= 256, at any REP (`_paged_groups`
+    cuts the query group into blocks that fit), whose q/k/v base pointers
+    (`ptrs`) are 16-byte aligned and whose slot stride is a multiple of 8
+    elements. Everything else takes the CUDA-core kernel (CUDA_CORES):
+    float32, other D, views cp.async cannot read. The rule is decided
+    before the launch; nothing is tried and caught, and the kernel it
+    picks launches or raises."""
     aligned = all(p % 16 == 0 for p in ptrs) and slot_stride % 8 == 0
-    if (dtype == torch.bfloat16 and d % 16 == 0 and d <= 256
-            and (rep <= 16 or (rep <= 32 and d <= 128)) and aligned):
+    if dtype == torch.bfloat16 and d % 16 == 0 and d <= 256 and aligned:
         return TENSOR_CORES
     return CUDA_CORES
 
 
+def _paged_groups(variant: str, rep: int, d: int) -> Tuple[int, int]:
+    """(G, RG): a KV head's REP query heads go to G blocks of at most RG
+    heads each, block g taking heads [g * RG, min(REP, (g + 1) * RG)).
+    From static shapes only. The tensor-core kernel keeps a whole group
+    in one block when a warp's fp32 accumulator holds it (ceil(REP / 16)
+    m-tiles of 16 rows x D, at most 128 values a thread: REP <= 16, or
+    REP <= 32 with D <= 128), else takes 16 heads a block (one m-tile, no
+    pad rows at REP 48). The CUDA-core kernel runs one warp per head, at
+    most 32 warps a block, in as few blocks of as even a size as it can."""
+    if variant == TENSOR_CORES:
+        rg = rep if rep <= 16 or (rep <= 32 and d <= 128) else 16
+    else:
+        rg = -(-rep // -(-rep // 32))
+    return -(-rep // rg), rg
+
+
 def _paged_splits(b: int, kv: int, mb: int, n_sms: int) -> Tuple[int, int]:
     """(n_splits, pages per split) from static shapes only: about 2 blocks
-    per SM over the B * KV * n_splits grid, never more splits than pages.
+    per SM over the B * KV * n_splits grid (KV counts each KV head's
+    blocks, `_paged_groups`' G of them), never more splits than pages.
     seq_lens never decides it (reading it would sync the host and break
     graph capture), so splits past a lane's length exit at once."""
     n = max(1, min(mb, -(-2 * n_sms // max(b * kv, 1))))
@@ -183,13 +241,13 @@ def _paged_splits(b: int, kv: int, mb: int, n_sms: int) -> Tuple[int, int]:
     return -(-mb // pps), pps
 
 
-def _paged_smem(variant: str, rep: int, d: int, bt: int, n_warps: int) -> int:
-    """Shared memory of the split kernel (`split_smem_bytes` in
-    csrc/paged_attention.cu computes the same)."""
+def _paged_smem(variant: str, rg: int, d: int, bt: int, n_warps: int) -> int:
+    """Shared memory of a split block of RG query heads (`split_smem_bytes`
+    in csrc/paged_attention.cu computes the same)."""
     if variant == TENSOR_CORES:
-        mt, ld, t = (2 if rep > 16 else 1), d + 8, -(-bt // 16) * 16
+        mt, ld, t = (2 if rg > 16 else 1), d + 8, -(-bt // 16) * 16
         return 2 * ld * (mt * 16 + 4 * n_warps * t) + 8 * n_warps * mt * 16
-    return 4 * (rep * d + 2 * bt * d + rep * bt)
+    return 4 * (rg * d + 2 * bt * d + rg * bt)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -201,8 +259,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     views are taken as they are, never copied); block_tables: [B, MB]
     int32 slots (-1 unused); seq_lens: [B] int32. Returns (out [B, H, D]
     in q's dtype, touched [B, MB] bool). On CUDA: a split kernel over
-    `_paged_splits` ranges of pages (`_paged_variant` picks it;
-    `paged_variants` counts each) writes fp32 partials, and a combine
+    `_paged_splits` ranges of pages and `_paged_groups` groups of query
+    heads (`_paged_variant` picks it; `paged_variants` counts each)
+    writes fp32 partials, and a combine
     kernel merges them and writes the access bits; one launch counted.
     No host sync, and a launch shape that depends on shapes only, so the
     call can be captured in a CUDA graph."""
@@ -227,19 +286,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check(seq_lens.shape == (b,) and seq_lens.dtype == torch.int32
            and seq_lens.is_contiguous(), "seq_lens: [B] int32")
     rep = h // kv
-    _check(d <= 256 and rep <= 32, "kernel takes D <= 256 and H/KV <= 32")
+    _check(d <= 256, "the kernel takes D <= 256")
     slot_stride = k_pages.stride(0)
     variant = _paged_variant(q.dtype, rep, d, (q.data_ptr(),
                              k_pages.data_ptr(), v_pages.data_ptr()),
                              slot_stride)
-    n_splits, pps = _paged_splits(b, kv, max(mb, 1), _n_sms(q.device))
+    groups, rg = _paged_groups(variant, rep, d)
+    n_splits, pps = _paged_splits(b, kv * groups, max(mb, 1),
+                                  _n_sms(q.device))
     n_warps = 1
     if variant == TENSOR_CORES:
         n_warps = min(_PAGED_WARPS, pps)
-        while n_warps > 1 and _paged_smem(variant, rep, d, bt,
+        while n_warps > 1 and _paged_smem(variant, rg, d, bt,
                                           n_warps) > _SMEM_MAX:
             n_warps -= 1
-    smem = _paged_smem(variant, rep, d, bt, n_warps)
+    smem = _paged_smem(variant, rg, d, bt, n_warps)
     _check(smem <= _SMEM_MAX, f"tiles need {smem} B of shared memory")
     out = torch.empty_like(q)
     touched = torch.empty((b, mb), dtype=torch.bool, device=q.device)
@@ -254,7 +315,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             out.data_ptr(), touched.data_ptr(), part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(),
-            b, kv, rep, d, bt, mb, n_slots, slot_stride, d ** -0.5,
+            b, kv, rep, rg, d, bt, mb, n_slots, slot_stride, d ** -0.5,
             _DTYPES[q.dtype], int(variant == TENSOR_CORES), n_splits, pps,
             n_warps, _stream())
     paged_variants[variant] += 1

@@ -113,6 +113,35 @@ def test_access_scan_plain_matches_pallas(n, sb_slots, n_sbs, ct, with_hist):
         assert np.array_equal(to_np(g), to_np(w))
 
 
+@pytest.mark.parametrize("n,n_sbs", [(1, 0), (3, 1), (7168, 672),
+                                     (1027, 100), (1 << 20, 65536)])
+def test_access_scan_layout(n, n_sbs):
+    """`ops._scan_layout`: the five outputs of a call lie in one buffer,
+    each at a 16-byte-aligned offset, in disjoint ranges that fit it."""
+    from repro_torch.kernels import ops as tops
+    offsets, size = tops._scan_layout(n, n_sbs)
+    sizes = dict(new_table=4 * n, hist=4 * n_sbs, skipped=4, to_hot=n,
+                 to_cold=n)
+    assert sorted(offsets) == sorted(sizes)
+    spans = sorted((offsets[k], offsets[k] + sizes[k]) for k in sizes)
+    assert all(a % 16 == 0 for a, _ in spans)
+    assert all(e <= a2 for (_, e), (a2, _) in zip(spans, spans[1:]))
+    assert spans[-1][1] <= size < spans[-1][1] + 16
+    assert size - sum(sizes.values()) < 16 * len(sizes)
+    outs = tops._scan_outputs(n, n_sbs, torch.device("cpu"))
+    assert [(tuple(x.shape), x.dtype) for x in outs] == [
+        ((n,), torch.int32), ((n,), torch.bool), ((n,), torch.bool),
+        ((n_sbs,), torch.int32), ((), torch.int32)]
+    base = outs[0].untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base for x in outs)
+    assert all((x.data_ptr() - base) % 16 == 0 for x in outs)
+    for i, x in enumerate(outs):           # each view is its own range
+        x.fill_(i + 1)
+    for i, x in enumerate(outs):
+        assert bool((x == i + 1).all()) if x.dtype != torch.bool \
+            else bool(x.all())
+
+
 def _migrate_case(rng, n_rows, w, src, dst, ok):
     data = rng.normal(size=(n_rows, w)).astype(np.float32)
     data[-1] = 0.0                                  # the scratch row

@@ -13,7 +13,10 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
-PA_SHAPES = [(2, 8, 2, 16, 4, 6), (3, 4, 4, 32, 8, 4), (1, 8, 1, 64, 16, 3)]
+# paged_attention: tests/test_kernels.py's shapes (b, h, kv, d, bt, mb) and
+# an MQA group of REP 48 (granite's H/KV), which runs as several blocks
+PA_SHAPES = [(2, 8, 2, 16, 4, 6), (3, 4, 4, 32, 8, 4), (1, 8, 1, 64, 16, 3),
+             (2, 48, 1, 16, 4, 6)]
 # flash_attention: tests/test_kernels.py's sweep (b, s, h, kv, d)
 FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 16)]
 FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
@@ -105,12 +108,14 @@ def _pa_check(args, dtype, want_variant):
 
 
 def _pa_want(dtype, rep, d):
-    """The variant the dispatch rule must pick for aligned pool views."""
-    tc = dtype == torch.bfloat16 and d % 16 == 0 and (rep <= 16 or d <= 128)
+    """The variant the dispatch rule must pick for aligned pool views: bf16
+    with D % 16 == 0 on the tensor cores at any REP."""
+    tc = dtype == torch.bfloat16 and d % 16 == 0 and d <= 256
     return tops.TENSOR_CORES if tc else tops.CUDA_CORES
 
 
 PA_SERVE = (8, 32, 2, 128, 16, 32)   # chatglm3-6b's serve shape
+PA_GRANITE = (8, 48, 1, 128, 16, 32)  # granite-20b/34b's decode (REP 48)
 
 
 @pytest.mark.gpu
@@ -124,7 +129,7 @@ def test_paged_attention_kernel_matches_plain(cuda, b, h, kv, d, bt, mb,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rep", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("rep", [1, 4, 8, 16, 32, 40, 48])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 @pytest.mark.parametrize("bt", [4, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -151,6 +156,21 @@ def test_paged_attention_edges_at_serve_shape(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "full", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_granite_decode_shape(cuda, kind, dtype):
+    """granite's decode shape (H=48 over one KV head): bf16 on the tensor
+    cores in three 16-head groups, fp32 on the CUDA cores in two of 24."""
+    want = _pa_want(dtype, 48, 128)
+    assert tops._paged_groups(want, 48, 128) == (
+        (3, 16) if dtype == torch.bfloat16 else (2, 24))
+    args = _pa_case(*PA_GRANITE, 31, kind, cuda, dtype)
+    out, touched = _pa_check(args, dtype, want)
+    if kind == "edges":
+        assert not out[0].any() and not touched[0].any()
+
+
+@pytest.mark.gpu
 def test_paged_attention_unaligned_pool_view(cuda):
     """bf16 pages whose slot stride is no multiple of 8 elements (16-byte
     cp.async cannot read them) go to the CUDA cores and match."""
@@ -170,12 +190,14 @@ def test_paged_attention_unaligned_pool_view(cuda):
 
 
 @pytest.mark.gpu
-def test_paged_attention_cuda_graph(cuda):
-    """Captured once in a CUDA graph at the serve shape, then replayed after
-    q, seq_lens and block_tables change in place: the replay matches the
-    plain version on the new inputs (the launch shape depends on shapes
-    only, and the call never syncs the host)."""
-    args = _pa_case(*PA_SERVE, 21, "random", cuda, torch.bfloat16)
+@pytest.mark.parametrize("shape", [PA_SERVE, PA_GRANITE])
+def test_paged_attention_cuda_graph(cuda, shape):
+    """Captured once in a CUDA graph at the serve shape and at granite's
+    (REP 48, several blocks per KV head), then replayed after q, seq_lens
+    and block_tables change in place: the replay matches the plain version
+    on the new inputs (the launch shape depends on shapes only, and the
+    call never syncs the host)."""
+    args = _pa_case(*shape, 21, "random", cuda, torch.bfloat16)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -184,7 +206,7 @@ def test_paged_attention_cuda_graph(cuda):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out, touched = tops.paged_attention(*args)
-    new = _pa_case(*PA_SERVE, 22, "edges", cuda, torch.bfloat16)
+    new = _pa_case(*shape, 22, "edges", cuda, torch.bfloat16)
     for x, y in zip(args, new):
         if x.dim() != 4:
             x.copy_(y)
@@ -196,23 +218,108 @@ def test_paged_attention_cuda_graph(cuda):
     assert not out[0].any()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,sb_slots,n_sbs", [(128, 8, 16), (300, 16, 64),
-                                              (7168, 16, 672)])
-@pytest.mark.parametrize("with_hist", [True, False])
-def test_access_scan_kernel_matches_plain(cuda, n, sb_slots, n_sbs, with_hist):
+def _scan_table(n, n_slots, seed, dev):
     from repro_torch.core import object_table as ot
-    g = torch.Generator().manual_seed(n)
+    g = torch.Generator().manual_seed(seed)
     f = [torch.randint(0, hi, (n,), generator=g, dtype=torch.int32)
-         for hi in (sb_slots * n_sbs + 5, 4, 2, 3, 32)]
-    table = ot.pack(*f).to(cuda)
-    ct = torch.tensor(2.5, device=cuda)
-    got = tops.access_scan(table, ct, sb_slots=sb_slots, n_sbs=n_sbs,
-                           with_hist=with_hist)
+         for hi in (n_slots + 5, 4, 2, 3, 32)]
+    return ot.pack(*f).to(dev)
+
+
+def _scan_check(table, ct, sb_slots, n_sbs, with_hist, got=None):
+    """got (by default a kernel call) equals the plain version exactly."""
+    if got is None:
+        got = tops.access_scan(table, ct, sb_slots=sb_slots, n_sbs=n_sbs,
+                               with_hist=with_hist)
     want = tref.access_scan(table, ct, sb_slots=sb_slots, n_sbs=n_sbs,
                             with_hist=with_hist)
     for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype
         assert torch.equal(x, y)
+
+
+# (n, sb_slots, n_sbs): the CPU tests' shapes, n % 4 != 0, the serve
+# shape, and 2^20 words over 65536 superblocks (bins past shared memory)
+SCAN_SHAPES = [(128, 8, 16), (300, 16, 64), (1, 4, 3), (1027, 8, 100),
+               (7168, 16, 672), (1 << 20, 16, 65536)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,sb_slots,n_sbs", SCAN_SHAPES)
+@pytest.mark.parametrize("with_hist", [True, False])
+def test_access_scan_kernel_matches_plain(cuda, n, sb_slots, n_sbs, with_hist):
+    table = _scan_table(n, sb_slots * n_sbs, n, cuda)
+    _scan_check(table, torch.tensor(2.5, device=cuda), sb_slots, n_sbs,
+                with_hist)
+
+
+@pytest.mark.gpu
+def test_access_scan_unaligned_table(cuda):
+    """A table view 4 bytes past a 16-byte boundary takes the scalar pass
+    and matches."""
+    big = _scan_table(1001, 16 * 64, 7, cuda)
+    table = big[1:]
+    assert table.data_ptr() % 16 != 0
+    for with_hist in (True, False):
+        _scan_check(table, torch.tensor(1.0, device=cuda), 16, 64, with_hist)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_hist", [True, False])
+def test_access_scan_is_one_kernel(cuda, with_hist):
+    """A call is exactly one device operation, the kernel: no memset, no
+    copy (the scratch was zeroed by the warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    table = _scan_table(7168, 16 * 672, 3, cuda)
+    ct = torch.tensor(2.0, device=cuda)
+    kw = dict(sb_slots=16, n_sbs=672, with_hist=with_hist)
+    tops.access_scan(table, ct, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = tops.access_scan(table, ct, **kw)
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(dev) == 1 and "access_scan_kernel" in dev[0], dev
+    _scan_check(table, ct, 16, 672, with_hist, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_hist", [True, False])
+def test_access_scan_cuda_graph_resets_scratch(cuda, with_hist):
+    """Captured once and replayed on three different tables copied into the
+    captured input: each replay is exact, so the kernel left its scratch
+    (the histogram's bins, the count and the ticket) zero."""
+    n, sb, nsb = 7168, 16, 672
+    table = _scan_table(n, sb * nsb, 40, cuda)
+    ct = torch.tensor(2.0, device=cuda)
+    kw = dict(sb_slots=sb, n_sbs=nsb, with_hist=with_hist)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tops.access_scan(table, ct, **kw)   # zeroes this stream's scratch
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = tops.access_scan(table, ct, **kw)
+    for seed in (41, 42, 43):
+        table.copy_(_scan_table(n, sb * nsb, seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        _scan_check(table, ct, sb, nsb, with_hist, got=out)
+
+
+@pytest.mark.gpu
+def test_access_scan_successive_n_sbs(cuda):
+    """Calls that alternate between superblock counts (each its own
+    scratch) and between with and without the histogram stay exact."""
+    ct = torch.tensor(3.0, device=cuda)
+    for i, (n, sb, nsb) in enumerate([(7168, 16, 672), (300, 16, 64),
+                                      (7168, 16, 672), (4096, 4, 20000),
+                                      (300, 16, 64)] * 2):
+        table = _scan_table(n, sb * nsb, 50 + i, cuda)
+        _scan_check(table, ct, sb, nsb, with_hist=i % 3 != 1)
 
 
 @pytest.mark.gpu
