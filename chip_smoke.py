@@ -40,23 +40,32 @@ kernel. In order:
   4. the serving path: `Server.serve` with chatglm3-6b at its full
      published width and depth (28 layers, random bf16 weights from a
      seeded generator), 8 lanes, max_len 512, 16-token blocks, 16 greedy
-     requests; every kernel's launch count is reset just before and read
-     just after, and the run must complete every request, launch each of
-     the three HADES kernels (and flash_attention never), run every
-     paged_attention launch on its tensor-core variant, migrate rows and
-     end with KV RSS 0. CUDA's sync debug mode counts the synchronising
-     operations of the run: none may fall inside a window and exactly one
-     at each window's close;
-  5. where the serve time goes: the same requests served again with
-     torch.profiler on for two windows in mid-run; the device's busy and
-     idle share of those windows' unprofiled wall time (from phase 4),
-     kernels per step, host syncs, copies and memsets per window, and
-     each HADES kernel's device time per launch (paged_attention: one
-     split and one combine kernel per layer and step, timed together;
-     access_scan: its one kernel);
+     requests, in graph mode, the default on the card: a warm-up request
+     captures the serve window's CUDA graph, and every window of the
+     counted run must be one replay of it. Every kernel's launch count is
+     reset just before and read just after (a replay adds the launches its
+     capture recorded), and the run must complete every request, launch
+     each of the three HADES kernels (and flash_attention never), run
+     every paged_attention launch on its tensor-core variant, migrate rows
+     and end with KV RSS 0. CUDA's sync debug mode counts the
+     synchronising operations of the run: none may fall inside a window
+     and exactly one at each window's close. The same requests are then
+     served in eager mode (op by op, the server's private `_eager`) under
+     the same gates: the greedy tokens and the final pool metadata must be
+     identical to the graph run's, and both walls are printed;
+  5. where the serve time goes, for each mode: the same requests served
+     again with torch.profiler on for two windows in mid-run; the
+     device's busy and idle share of those windows' unprofiled wall time
+     (from phase 4), kernels per step, host syncs, copies and memsets per
+     window, and each HADES kernel's device time per launch
+     (paged_attention: one split and one combine kernel per layer and
+     step, timed together, and counted: 448 of each; access_scan: its one
+     kernel); in eager mode also the device time, copies and memsets per
+     step by the port function and host op that launched them;
   6. the kernel path against the plain path on the card at 2 layers and
      full width: a teacher-forced serve window (pool metadata exactly,
-     logits within 5e-2), and a prefill of B=2 x S=4096 with
+     logits within 5e-2), the kernel path a replay of the window's graph
+     and the plain path op by op; a prefill of B=2 x S=4096 with
      attn_impl="flash" against "blockwise" on the same weights (float32
      logits within 5e-2; bfloat16 logits within two bf16 ulps of the
      largest logit, see `prefill_flash_vs_blockwise`); and falcon-mamba's
@@ -211,6 +220,32 @@ SCAN_POOL = (1 << 20, 16, 65536)   # 16 GiB of 16 KiB objects: words,
 L2_FLUSH_BYTES = 256 << 20         # five times the H100's 50 MB L2
 
 
+_CUPTI = []
+
+
+def flush_device_records():
+    """Synchronizes, then has CUPTI hand every device record it still holds
+    to the profiler (cuptiActivityFlushAll, forced). Call it last in every
+    profiled range whose records are counted: on the H100, traces of
+    several CUDA graph replays ended without the tail of the last replay,
+    its closing device-to-host copy included, when the profiler was
+    stopped without it; with it, none did. The library is the one the
+    process has loaded (torch's), found in /proc/self/maps."""
+    import ctypes
+    import torch
+    torch.cuda.synchronize()
+    if not _CUPTI:
+        with open("/proc/self/maps") as f:
+            paths = {line.split(None, 5)[5].strip() for line in f
+                     if "libcupti" in line and len(line.split(None, 5)) == 6}
+        if len(paths) != 1:
+            raise RuntimeError(f"want one loaded libcupti, found {paths}")
+        _CUPTI.append(ctypes.CDLL(paths.pop()))
+    rc = _CUPTI[0].cuptiActivityFlushAll(1)   # CUPTI_ACTIVITY_FLAG_FLUSH_FORCED
+    if rc != 0:
+        raise RuntimeError(f"cuptiActivityFlushAll returned {rc}")
+
+
 def device_ops(fn, iters: int, between=None):
     """(device ms, device operations, their names) per call of fn(): the
     summed durations of every kernel, memset and copy in a torch.profiler
@@ -226,7 +261,7 @@ def device_ops(fn, iters: int, between=None):
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 f()
-            torch.cuda.synchronize()
+            flush_device_records()
         return [e for e in prof.events() if e.device_type == cuda_t]
     skip = set()
     if between is not None:
@@ -802,28 +837,11 @@ def watch_windows(srv):
             del srv._upload
 
 
-def serve_full(dev):
+def _serve_run(srv, params, reqs, label):
+    """One counted serve: every kernel's launch count reset just before
+    and read just after, CUDA sync debug mode on; then phase 4's gates."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models.model import Model
-    from repro_torch.runtime.server import Request, Server, ServerConfig
-    cfg = get_config("chatglm3-6b")
-    model = Model(cfg, device="cuda")
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
-    log(f"chatglm3-6b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B params ({str(cfg.dtype)}), init "
-        f"{time.perf_counter() - t0:.1f} s")
-    srv = Server(model, ServerConfig(**SERVE))
-    rng = np.random.default_rng(0)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
-                                        int(rng.integers(32, 65))).tolist(),
-                    max_new=MAX_NEW) for _ in range(N_REQUESTS)]
-    # warm-up: one short request through every path (not counted)
-    srv.serve(params, [Request(prompt=[1, 2, 3], max_new=2)])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -840,53 +858,138 @@ def serve_full(dev):
     steps = windows * srv.cfg.collect_every
     peak_rss = max(e["rss_bytes"] for e in srv.serve_log)
     final_rss = srv.kv_rss_bytes()
-    log(f"serve: {len(results)} requests, {n_tok} tokens in {dt:.2f} s "
-        f"({n_tok / dt:.1f} tok/s, {steps} model steps, "
+    log(f"serve ({label}): {len(results)} requests, {n_tok} tokens in "
+        f"{dt:.2f} s ({n_tok / dt:.1f} tok/s, {steps} model steps, "
         f"{dt / steps * 1e3:.1f} ms/step), {windows} windows, "
-        f"{srv.dispatches} dispatches, {moved:.0f} rows migrated, peak KV "
-        f"RSS {peak_rss / 2**20:.1f} MiB, final {final_rss:.0f} B, peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"serve launches: {launches}; paged_attention by variant: "
-        f"{paged_variants}")
+        f"{srv.dispatches} dispatches, {srv.replays} graph replays, "
+        f"{moved:.0f} rows migrated, peak KV RSS {peak_rss / 2**20:.1f} "
+        f"MiB, final {final_rss:.0f} B, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"serve ({label}) launches: {launches}; paged_attention by "
+        f"variant: {paged_variants}")
     close = [watch["close"][i] for i in range(1, windows + 1)]
-    log(f"serve syncs (CUDA sync debug mode): {sum(watch['inside'].values())}"
-        f" inside windows, {sum(close)} at the {windows} window closes "
-        f"(per window: {sorted(set(close))}), {watch['between']} between "
-        f"windows (the reset before the first)")
+    log(f"serve ({label}) syncs (CUDA sync debug mode): "
+        f"{sum(watch['inside'].values())} inside windows, {sum(close)} at "
+        f"the {windows} window closes (per window: {sorted(set(close))}), "
+        f"{watch['between']} between windows (the reset before the first)")
     if len(results) != N_REQUESTS or any(
             not r.tokens or r.finish_reason not in ("eos", "length")
             for r in results):
-        raise AssertionError("not every request completed")
+        raise AssertionError(f"{label}: not every request completed")
     for name in HADES_KERNELS:
         if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the serve path")
+            raise AssertionError(f"{label}: {name} was not launched on the "
+                                 "serve path")
     if launches["flash_attention"]:
-        raise AssertionError("flash_attention launched on the serve path")
+        raise AssertionError(f"{label}: flash_attention launched on the "
+                             "serve path")
     if paged_variants != {ops.TENSOR_CORES: launches["paged_attention"],
                           ops.CUDA_CORES: 0}:
-        raise AssertionError(f"paged_attention ran {paged_variants} of "
-                             f"{launches['paged_attention']} launches; want "
-                             "every one on the tensor cores")
+        raise AssertionError(f"{label}: paged_attention ran {paged_variants}"
+                             f" of {launches['paged_attention']} launches; "
+                             "want every one on the tensor cores")
     if moved <= 0:
-        raise AssertionError("no rows migrated over the run")
+        raise AssertionError(f"{label}: no rows migrated over the run")
     if watch["inside"]:
-        raise AssertionError(f"host syncs inside windows {watch['inside']}")
+        raise AssertionError(f"{label}: host syncs inside windows "
+                             f"{watch['inside']}")
     if close != [1] * windows:
-        raise AssertionError(f"syncs at the window closes: {close}, want "
-                             "exactly one per window")
+        raise AssertionError(f"{label}: syncs at the window closes: {close},"
+                             " want exactly one per window")
     if final_rss != 0:
-        raise AssertionError(f"KV RSS {final_rss} after the drain")
+        raise AssertionError(f"{label}: KV RSS {final_rss} after the drain")
     summary = dict(requests=len(results), tokens=n_tok, seconds=dt,
                    tok_per_s=n_tok / dt, windows=windows, steps=steps,
                    ms_per_step=dt / steps * 1e3, rows_migrated=moved,
-                   peak_kv_rss_bytes=peak_rss, layers=cfg.num_layers,
-                   params=n_params, syncs_inside_windows=0,
+                   graph_replays=srv.replays, launches=launches,
+                   peak_kv_rss_bytes=peak_rss, syncs_inside_windows=0,
                    syncs_per_window_close=1,
                    syncs_between_windows=watch["between"],
                    paged_attention_variants=paged_variants,
                    peak_device_bytes=torch.cuda.max_memory_allocated())
-    summary["trace"] = trace_serve(srv, params, reqs, watch["starts"])
-    del params, srv
+    return results, summary, watch["starts"]
+
+
+def serve_full(dev):
+    """Phase 4 in graph mode (the default on the card: every window one
+    CUDA graph replay), phase 5 on it, then the same requests served and
+    traced again in eager mode (op by op) on the same server: the greedy
+    tokens and the final pool metadata must be identical."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.server import Request, Server, ServerConfig
+    cfg = get_config("chatglm3-6b")
+    model = Model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"chatglm3-6b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params ({str(cfg.dtype)}), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    srv = Server(model, ServerConfig(**SERVE))
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(32, 65))).tolist(),
+                    max_new=MAX_NEW) for _ in range(N_REQUESTS)]
+    # warm-up: one short request, which captures the serve window's graph
+    # (its first window runs eagerly, the capture follows; not counted)
+    t0 = time.perf_counter()
+    srv.serve(params, [Request(prompt=[1, 2, 3], max_new=2)])
+    torch.cuda.synchronize()
+    log(f"warm-up serve with the capture: {time.perf_counter() - t0:.2f} s, "
+        f"{len(srv._graphs)} graph(s)")
+    results, graph, starts = _serve_run(srv, params, reqs, "graph")
+    if srv.replays != graph["windows"]:
+        raise AssertionError(f"{srv.replays} graph replays in "
+                             f"{graph['windows']} windows, want one each")
+    tokens = [r.tokens for r in results]
+    final = {k: v.clone() for k, v in _flat(srv.state).items()}
+    graph["trace"] = trace_serve(srv, params, reqs, starts)
+
+    srv._eager = True
+    results, eager, starts = _serve_run(srv, params, reqs, "eager")
+    if srv.replays:
+        raise AssertionError("the eager serve replayed a graph")
+    if [r.tokens for r in results] != tokens:
+        raise AssertionError("greedy tokens differ between graph and eager")
+    flat = _flat(srv.state)
+    for k, v in final.items():
+        if not k.endswith("data") and not torch.equal(v, flat[k]):
+            raise AssertionError(f"final pool metadata differs at {k}")
+    data_err = (final["pool/data"].float()
+                - flat["pool/data"].float()).abs().max().item()
+    eager["trace"] = trace_serve(srv, params, reqs, starts, by_origin=True)
+    srv._eager = False
+    # the graph run's counts are added per replay from what its capture
+    # recorded: they must be the eager run's, counted at the wrappers, and
+    # the kernels that each run's trace found in two windows, per window
+    for key in ("launches", "paged_attention_variants"):
+        if graph[key] != eager[key]:
+            raise AssertionError(f"{key}: graph {graph[key]} vs eager "
+                                 f"{eager[key]}")
+    for label, run in (("graph", graph), ("eager", eager)):
+        traced = {k: h["launches"]
+                  for k, h in run["trace"]["hades_kernels"].items()}
+        if any(n * run["windows"] != 2 * run["launches"][k]
+               for k, n in traced.items()):
+            raise AssertionError(
+                f"{label}: {traced} kernels in 2 traced windows do not "
+                f"scale to the {run['windows']} windows' launch counts "
+                f"{run['launches']}")
+    log(f"serve graph vs eager: tokens, final pool metadata and launch "
+        f"counts identical, the traced kernels per window times the windows "
+        f"equal to the counts, pool data max |err| {data_err:.3g}; wall {graph['ms_per_step']:.2f}"
+        f" vs {eager['ms_per_step']:.2f} ms/step, {graph['tok_per_s']:.1f} vs "
+        f"{eager['tok_per_s']:.1f} tok/s")
+    summary = dict(graph, layers=cfg.num_layers, params=n_params,
+                   eager=eager,
+                   graph_vs_eager=dict(tokens_identical=True,
+                                       metadata_identical=True,
+                                       pool_data_max_abs_err=data_err))
+    launches, steps = graph["launches"], graph["steps"]
+    del params, srv, final
     torch.cuda.empty_cache()
     return launches, summary, steps
 
@@ -909,7 +1012,94 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def trace_serve(srv, params, reqs, starts):
+# the port's functions of a serve window that the eager trace labels with
+# a record_function range each (`_labelled`), innermost label winning
+LABELLED = {
+    "repro_torch.models.layers": ("embed", "rms_norm", "mlp", "positional",
+                                  "logits_head"),
+    "repro_torch.models.transformer": ("_qkv", "decode_layer_step"),
+    "repro_torch.models.kvcache": ("append_layer", "attend",
+                                   "_record_touched", "advance_pos",
+                                   "free_lanes", "admit_lanes"),
+    "repro_torch.core.pool": ("apply_op", "superblock_stats", "rss_bytes"),
+    "repro_torch.core.freelist": ("pop", "push", "pop_region", "restock",
+                                  "first_occurrence"),
+    "repro_torch.core.object_table": ("set_drop", "add_drop",
+                                      "record_access",
+                                      "clear_access_and_atc"),
+    "repro_torch.core.collector": ("classify", "_select_movers",
+                                   "_plan_moves", "collect"),
+    "repro_torch.core.policy": ("update",),
+    "repro_torch.runtime.sampling": ("sample",),
+    "repro_torch.kernels.ops": ("paged_attention", "access_scan", "migrate"),
+}
+
+
+_LABELS = {f"{m.rsplit('.', 1)[1]}.{n}" for m, ns in LABELLED.items()
+           for n in ns}
+
+
+@contextlib.contextmanager
+def _labelled():
+    """Wraps each function of LABELLED in a torch.profiler.record_function
+    range named after it ("freelist.pop"), so that a trace names the code
+    that launched each device operation; restores them after."""
+    import importlib
+    from torch.profiler import record_function
+    saved = []
+    for mod_name, names in LABELLED.items():
+        mod = importlib.import_module(mod_name)
+        for name in names:
+            fn = getattr(mod, name)
+            label = f"{mod_name.rsplit('.', 1)[1]}.{name}"   # in _LABELS
+
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                with record_function(_label):
+                    return _fn(*a, **kw)
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _origin(e, labels):
+    """(port functions, aten ops) of a host op that launched device work:
+    e.g. ("kvcache.append_layer>pool.apply_op>freelist.pop",
+    "aten::clone>aten::copy_"), from its enclosing profiler ranges (the
+    innermost three port functions)."""
+    ops, port, op = [], [], e
+    while op is not None:
+        if op.name.startswith("aten::"):
+            ops.insert(0, op.name)
+        elif op.name in labels:
+            port.insert(0, op.name)
+        op = op.cpu_parent
+    return ">".join(port[-3:]) or "?", ">".join(ops) or e.name
+
+
+def _by_origin(host_ev, steps):
+    """Device time, kernels, device-to-device copies and memsets per step,
+    by the port function and host op that launched them (eager mode: a graph
+    replay has no host op per kernel)."""
+    rows = collections.defaultdict(lambda: dict(device_ms=0.0, kernels=0,
+                                                copies=0, memsets=0))
+    for e in host_ev:
+        for k in getattr(e, "kernels", None) or ():
+            r = rows[_origin(e, _LABELS)]
+            r["device_ms"] += k.duration / 1e3 / steps
+            if k.name.startswith("Memcpy DtoD"):
+                r["copies"] += 1 / steps
+            elif k.name.startswith("Memset"):
+                r["memsets"] += 1 / steps
+            else:
+                r["kernels"] += 1 / steps
+    return {f"{port} | {ops}": r for (port, ops), r in rows.items()}
+
+
+def trace_serve(srv, params, reqs, starts, by_origin=False):
     """Serves the same requests again under torch.profiler over windows
     TRACE_FROM - 1 (which warms it up) to TRACE_FROM + 2, and reads windows
     TRACE_FROM and TRACE_FROM + 1. Host events are taken between the marks
@@ -919,7 +1109,10 @@ def trace_serve(srv, params, reqs, starts):
     and device clocks are not aligned closely enough to cut the device
     timeline at a host mark. The device's busy share is the union of those
     device intervals over the same two windows' wall time in the
-    unprofiled run (`starts`)."""
+    unprofiled run (`starts`). With `by_origin` (eager mode) the port's
+    window functions are labelled (`_labelled`), and the device work is
+    also summed by the function and host op that launched it
+    (`_by_origin`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     if len(starts) < TRACE_FROM + 4:
@@ -934,6 +1127,7 @@ def trace_serve(srv, params, reqs, starts):
         if i == TRACE_FROM - 1:
             prof.start()
         elif i == TRACE_FROM + 3:
+            flush_device_records()
             prof.stop()
         if i in (TRACE_FROM, TRACE_FROM + 2):
             with record_function(f"window_start_{i}"):
@@ -941,7 +1135,8 @@ def trace_serve(srv, params, reqs, starts):
         return upload(host)
     srv._upload = traced
     try:
-        srv.serve(params, reqs)
+        with _labelled() if by_origin else contextlib.nullcontext():
+            srv.serve(params, reqs)
     finally:
         del srv._upload
     wall_us = (starts[TRACE_FROM + 2] - starts[TRACE_FROM]) * 1e6
@@ -960,7 +1155,11 @@ def trace_serve(srv, params, reqs, starts):
         raise AssertionError(f"{len(closes)} device-to-host copies in the "
                              "4 traced windows, want one per window")
     d_lo, d_hi = closes[0].end, closes[2].end
+    # the device timeline also holds a span per record_function range
+    # (`_labelled`'s): those are annotations, not device work
     dev = [e for e in prof.events() if e.device_type != cpu_t
+           and not getattr(e, "is_user_annotation", False)
+           and e.name not in _LABELS
            and d_lo <= e.time_range.start < d_hi]
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
     if not kernels:
@@ -1017,6 +1216,19 @@ def trace_serve(srv, params, reqs, starts):
                if kname == "paged_attention" else ""))
     for k, v in top:
         log(f"  {v / 1e3 / steps:9.4f} ms/step  {k[:100]}")
+    if by_origin:
+        rows = _by_origin(host_ev, steps)
+        res["by_origin_per_step"] = rows
+        for key, order in (("device_ms", "device time"),
+                           ("copies", "device-to-device copies"),
+                           ("memsets", "memsets")):
+            log(f"  by launching function and op, {order} per step:")
+            for name, r in sorted(rows.items(),
+                                  key=lambda kv: -kv[1][key])[:12]:
+                if r[key]:
+                    log(f"    {r[key]:9.4f}  {name[:110]}  ({r['kernels']:.1f}"
+                        f" kernels, {r['copies']:.1f} copies, "
+                        f"{r['memsets']:.2f} memsets)")
     return res
 
 
@@ -1048,17 +1260,27 @@ def kernel_vs_plain(dev):
     forced = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (SERVE["batch"], 5 * SERVE["collect_every"]))
 
-    def run():
+    def run(eager):
+        """The kernel path replays the window's graph: a first call
+        captures it, `reset` starts the pool afresh, and the second call,
+        the one compared, is a replay. The plain path runs op by op."""
         srv = Server(model, ServerConfig(**SERVE))
+        srv._eager = eager
+        if not eager:
+            srv.decode_window(params, forced)
+            srv.reset()
         logits, _, reps = srv.decode_window(params, forced)
         torch.cuda.synchronize()
+        if srv.replays != int(not eager):
+            raise AssertionError(f"{srv.replays} replays in the "
+                                 f"{'plain' if eager else 'kernel'} path")
         return srv, logits, eng.window_reports(reps)
 
-    srv_k, logits_k, reps_k = run()
+    srv_k, logits_k, reps_k = run(eager=False)
     with mock.patch.multiple(ops, paged_attention=ref.paged_attention,
                              access_scan=ref.access_scan,
                              migrate=ref.migrate):
-        srv_p, logits_p, reps_p = run()
+        srv_p, logits_p, reps_p = run(eager=True)
     flat_k, flat_p = _flat(srv_k.state), _flat(srv_p.state)
     for k in flat_k:
         if k.endswith("data"):
@@ -1071,7 +1293,7 @@ def kernel_vs_plain(dev):
     data_err = (flat_k["pool/data"].float()
                 - flat_p["pool/data"].float()).abs().max().item()
     moved = sum(r["moved_to_hot"] + r["moved_to_cold"] for r in reps_k)
-    log(f"kernel path vs plain path (2 layers, full width, "
+    log(f"kernel path (a graph replay) vs plain path (2 layers, full width, "
         f"{forced.shape[1]} teacher-forced steps, {moved:.0f} rows "
         f"migrated): pool metadata and reports identical, logits max |err| "
         f"{err:.3g} (< 5e-2), pool data max |err| {data_err:.3g}")
@@ -1271,6 +1493,7 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        flush_device_records()
     dev_ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_ev:

@@ -1,5 +1,5 @@
 """Object Collector — periodic scan + lock-free migration (paper §4); port
-of `repro/core/collector.py` (`compact_heap` is not ported yet).
+of `repro/core/collector.py`, with the region repack `compact_heap`.
 
 Each collect pass, run between application steps:
 
@@ -189,3 +189,39 @@ def collect(pool_cfg: pl.PoolConfig, col_cfg: CollectorConfig,
 def arm(state: Dict) -> Dict:
     """Arm the migration window: later reads bump ATCs."""
     return dict(state, armed=torch.ones_like(state["armed"]))
+
+
+def compact_heap(pool_cfg: pl.PoolConfig, state: Dict, heap: int) -> Dict:
+    """Repack region `heap` densely: live objects to the region's start in
+    slot order, holes to its end. Every moved row is read before any is
+    written (one gather, then one scatter into `data` in place). A
+    maintenance pass, not on the serve path: the free rings are restocked
+    from the compacted owner array and the occupancy is recounted."""
+    lo, hi = pool_cfg.region(heap)
+    n_slots = pool_cfg.n_slots
+    owner = state["slot_owner"]
+    seg = owner[lo:hi]
+    live = seg >= 0
+    new_rel = torch.where(live, torch.cumsum(live.to(_I32), 0, dtype=_I32)
+                          - 1, -1)
+    src = torch.arange(lo, hi, dtype=_I32, device=seg.device)
+    # dead entries copy the all-zero scratch row onto itself
+    data = state["data"]
+    rows = data[torch.where(live, src, n_slots).long()]
+    data[torch.where(live, new_rel + lo, n_slots).long()] = rows
+    sink = torch.where(live, new_rel, hi - lo).long()
+    owner = owner.clone()
+    owner[lo:hi] = ot.set_drop(torch.full_like(seg, -1), sink, seg)
+    tbl = ot.set_drop(
+        state["table"], torch.where(live, seg, pool_cfg.max_objects).long(),
+        ot.with_slot(state["table"][torch.clamp(seg, min=0).long()],
+                     new_rel + lo))
+    slot_ref = state["slot_ref"].clone()
+    seg_ref = slot_ref[lo:hi]
+    slot_ref[lo:hi] = ot.set_drop(torch.zeros_like(seg_ref), sink, seg_ref)
+    free_q, free_head, free_count = fl.restock(pool_cfg, state["free_q"],
+                                               owner)
+    return dict(state, data=data, slot_owner=owner, table=tbl,
+                slot_ref=slot_ref, free_q=free_q, free_head=free_head,
+                free_count=free_count,
+                sb_occ=pl.recompute_sb_occupancy(pool_cfg, owner))

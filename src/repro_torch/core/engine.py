@@ -4,16 +4,18 @@
 yet).
 
 The JAX package compiles a window into one `lax.scan` in two shapes
-(window-aligned and generic). PyTorch runs eagerly, and the host knows the
-window clock, so both shapes become ONE Python loop with the same
-semantics: the clock ticks once per step; with `overlap`, the ATC window
-is armed after the step that leaves clock % every == every - 1; collect +
-backend runs after the step that leaves clock % every == 0. Nothing in the
-loop reads a device value on the host. Lane events (the JAX `pre_fn`)
-resolve at a window entry; the server applies them before it calls
-`run_window` on an aligned clock, which is what the JAX program does at
-the entry of the call's first window (its later entries carry no
-events).
+(window-aligned and generic), because a scan needs a static structure.
+PyTorch runs the window as Python, and the host knows the window clock, so
+both shapes are ONE loop, `run_window`, with the same semantics: the clock
+ticks once per step; with `overlap`, the ATC window is armed after the
+step that leaves clock % every == every - 1; collect + backend runs after
+the step that leaves clock % every == 0. From an aligned clock over whole
+windows this is the aligned shape, and the op sequence it records is
+static: it is what the server captures as one CUDA graph per window
+(`runtime/server.py`). Nothing in the loop reads a device value on the
+host. Lane events (the JAX `pre_fn`) resolve at a window entry; the
+server applies them before the loop, which is what the JAX program does at
+the entry of the call's first window (its later entries carry no events).
 """
 from __future__ import annotations
 

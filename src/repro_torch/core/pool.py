@@ -292,6 +292,15 @@ def sb_occupancy(cfg: PoolConfig, state: Dict) -> torch.Tensor:
     return state["sb_occ"]
 
 
+def recompute_sb_occupancy(cfg: PoolConfig,
+                           slot_owner: torch.Tensor) -> torch.Tensor:
+    """Occupancy [n_sbs] int32 counted from the slot-owner array: the
+    consistency oracle of the carried counters, and the rebuild of passes
+    that rewrite whole regions (`collector.compact_heap`)."""
+    return (slot_owner >= 0).view(cfg.n_sbs, cfg.sb_slots).sum(
+        dim=1, dtype=_I32)
+
+
 def superblock_stats(cfg: PoolConfig, state: Dict) -> Dict[str, torch.Tensor]:
     ref = state["slot_ref"].view(cfg.n_sbs, cfg.sb_slots).any(dim=1)
     return {"occupancy": sb_occupancy(cfg, state), "referenced": ref,

@@ -36,10 +36,37 @@ paged_variants: Dict[str, int] = {TENSOR_CORES: 0, CUDA_CORES: 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+_COUNTERS = {"launches": launches, "flash_variants": flash_variants,
+             "paged_variants": paged_variants}
+
+
 def reset_launches() -> None:
-    for counts in (launches, flash_variants, paged_variants):
+    for counts in _COUNTERS.values():
         for name in counts:
             counts[name] = 0
+
+
+def count_snapshot() -> Dict[str, Dict[str, int]]:
+    """A copy of every count (`launches` and the variant counts)."""
+    return {k: dict(v) for k, v in _COUNTERS.items()}
+
+
+def counts_since(snap: Dict[str, Dict[str, int]]
+                 ) -> Dict[str, Dict[str, int]]:
+    """The counts added since `snap`, which every count is set back to (a
+    graph capture records launches but makes none)."""
+    delta = {}
+    for k, counts in _COUNTERS.items():
+        delta[k] = {n: c - snap[k][n] for n, c in counts.items()}
+        counts.update(snap[k])
+    return delta
+
+
+def add_counts(delta: Dict[str, Dict[str, int]]) -> None:
+    """Add the counts of one replay of a captured graph."""
+    for k, counts in _COUNTERS.items():
+        for n, c in delta[k].items():
+            counts[n] += c
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:

@@ -43,7 +43,9 @@ def main():
     ap.add_argument("--backend", default="proactive", choices=be.names(),
                     help="tiering backend (backend registry)")
     ap.add_argument("--hbm-target-mb", type=int, default=0,
-                    help="pressure target of the reactive backend")
+                    help="pressure target (MiB) of the backend, for those "
+                         "that declare one (reactive, cap, mglru: "
+                         "hbm_target_bytes; promote: hbm_high_bytes)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")

@@ -5,11 +5,40 @@ A decode window runs W model steps — embed, then for each layer qkv, the
 paged append into the pool, attention through the object table (which
 sets access bits), the FFN; then logits and the next token — and, at the
 window's close, the collector sweep, the budgeted migration, MIAD and the
-tiering backend. The JAX package compiles a window into one `lax.scan`;
-here it is one Python loop over the steps with the layers as an inner
-loop, the clock known on the host (`core.engine.run_window`). Nothing
-inside a window reads a device value on the host: the server syncs once
-per window, and `dispatches` counts one per window.
+tiering backend. Nothing inside a window reads a device value on the
+host: the server syncs once per window, and `dispatches` counts one per
+window.
+
+The JAX package compiles each window into one jitted program with a
+donated carry (`_win_serve` for `serve`, `_win_aligned` for aligned
+`generate` / `decode_window` calls, `_win_generic` otherwise). The port
+has one window body (`_run`, over `core.engine.run_window`: the host knows
+the clock, so the arm and collect points are placed statically) and two
+programs over it (`_window_body`: "window", and "serve", which applies the
+lane events first). A window of whole collect periods from an aligned
+clock runs, on a CUDA device, as ONE CUDA graph replay:
+
+  * the static carry: once a graph exists, every leaf of `self.state`
+    plus the last tokens and the per-lane sampling parameters live in
+    buffers the graphs read and write (`_to_static`); a captured body
+    ends by copying each leaf the window replaced (the metadata is
+    updated functionally) back into its buffer. The pool's `data` is
+    updated in place and is never copied;
+  * one static input per graph (`serve`'s int32 upload with the lane
+    events, or the forced tokens) and its static outputs;
+  * the graphs are cached by program, length, sampling and what they read
+    of `params` (each leaf's address, shape, strides and dtype), keep only
+    the graphs of the latest params, and share one memory pool. A shape's
+    first window runs eagerly on the capture stream (it is real and
+    counts), then is captured there; replays start from the next window.
+    A sampled graph holds the server's own generator
+    (`CUDAGraph.register_generator_state`). A capture that fails raises:
+    nothing falls back to the eager path.
+
+Every other window (`decode_step`, unaligned `decode_window`) runs op by
+op, as JAX keeps `_win_generic`; so does every window on the CPU, and on
+CUDA with the private `_eager` set (the tests and `chip_smoke.py` compare
+the two modes that way).
 
 `overlap_collect=True` arms the ATC epoch one step before each window
 closes, so objects dereferenced by the closing step carry ATC > 0 and do
@@ -21,15 +50,17 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import backend as be
 from repro_torch.core import collector as col
 from repro_torch.core import engine as eng
 from repro_torch.core import pool as pl
+from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -90,6 +121,16 @@ class _Lane:
     reason: str = ""
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured window program: the graph, its static input and
+    outputs, and the kernel launches one replay makes (`kops.add_counts`)."""
+    graph: object
+    x: torch.Tensor
+    outs: Dict
+    counts: Dict[str, Dict[str, int]]
+
+
 class Server:
     """Decode-only server for the dense attention decoder."""
 
@@ -109,6 +150,13 @@ class Server:
         self.backend = be.make(cfg.backend, **(cfg.backend_params or {}))
         self.reports: List[Dict] = []
         self.serve_log: List[Dict] = []
+        # True runs every window op by op on CUDA too (tests, chip_smoke)
+        self._eager = False
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._static: Optional[List[torch.Tensor]] = None
+        self._spec = None
+        self._side = self._mempool = None
+        self._gen = torch.Generator(device=self.device)
         self.reset()
 
     # -- the decode transition ------------------------------------------------
@@ -155,22 +203,179 @@ class Server:
     def _arm(carry):
         return dict(carry, kv=kvc.arm(carry["kv"]))
 
-    def _run(self, params, toks: torch.Tensor):
-        """toks [B, T] (>= 0 forced, < 0 self-feed) -> (logits [B,T,V],
-        sampled [B,T], collect reports), the carry advanced by T steps."""
-        carry = {"kv": self.state, "tok": self._last_tok, "temp": self._temp,
-                 "topk": self._topk}
-        do_sample = self._sample_in_scan
-        carry, outs, reports = eng.run_window(
+    def _run(self, params, do_sample: bool, carry: Dict, toks: torch.Tensor,
+             clock: int):
+        """The window body, pure: toks [B, T] (>= 0 forced, < 0 self-feed)
+        from op clock `clock` -> (carry', per-step outputs, collect
+        reports)."""
+        return eng.run_window(
             lambda c, f: self._step(params, do_sample, c, f), self._collect,
-            self._arm, carry, list(toks.T), self._steps,
+            self._arm, carry, list(toks.T), clock,
             every=self.cfg.collect_every, overlap=self.cfg.overlap_collect)
+
+    # -- the window programs --------------------------------------------------
+    def _window_body(self, name: str, params, do_sample: bool,
+                     clock: int) -> Callable:
+        """Program `name` from op clock `clock` as (carry, x) ->
+        (carry', outs), over `_run`:
+
+          "window": x = forced tokens [B, T]; outs {"logits" [B, T, V],
+                    "tok" [B, T], "reports" [one per collect]}
+          "serve":  x = `serve`'s int32 upload [free B | admit B | top-k B
+                    | tokens B*W | temperature B as int32 bits]; the lane
+                    events run at the entry (finished lanes free their KV,
+                    admitted lanes take their sampling parameters); outs
+                    {"packed": float64 [sampled B*W, KV RSS bytes, live
+                    blocks, each report's REPORT_KEYS]}, what the window's
+                    close copies to the host in one go."""
+
+        def window(carry, toks):
+            carry, outs, reports = self._run(params, do_sample, carry, toks,
+                                             clock)
+            return carry, {
+                "logits": torch.stack([o["logits"] for o in outs], dim=1),
+                "tok": torch.stack([o["tok"] for o in outs], dim=1),
+                "reports": reports}
+
+        def serve(carry, inp):
+            b = self.cfg.batch
+            w = inp.shape[0] // b - 4
+            free, admit = inp[:b].bool(), inp[b:2 * b].bool()
+            topk = inp[2 * b:3 * b]
+            temp = inp[(3 + w) * b:].view(torch.float32)
+            kv = kvc.free_lanes(self.kv_cfg, carry["kv"], free)
+            carry = dict(carry, kv=kvc.admit_lanes(kv, admit),
+                         temp=torch.where(admit, temp, carry["temp"]),
+                         topk=torch.where(admit, topk, carry["topk"]))
+            carry, outs, reports = self._run(
+                params, do_sample, carry, inp[3 * b:(3 + w) * b].view(b, w),
+                clock)
+            kv = carry["kv"]
+            sampled = torch.stack([o["tok"] for o in outs], dim=1)
+            gauges = [pl.rss_bytes(self.kv_cfg.pool_config(), kv["pool"]),
+                      (kv["block_tables"] >= 0).sum()]
+            vals = gauges + [r[k] for r in reports for k in eng.REPORT_KEYS]
+            return carry, {"packed": torch.cat([
+                sampled.flatten().double(),
+                torch.stack([v.double() for v in vals])])}
+
+        return {"window": window, "serve": serve}[name]
+
+    def _carry(self) -> Dict:
+        return {"kv": self.state, "tok": self._last_tok, "temp": self._temp,
+                "topk": self._topk}
+
+    def _uncarry(self, carry: Dict) -> None:
         self.state, self._last_tok = carry["kv"], carry["tok"]
         self._temp, self._topk = carry["temp"], carry["topk"]
-        self._steps += toks.shape[1]
-        logits = torch.stack([o["logits"] for o in outs], dim=1)
-        sampled = torch.stack([o["tok"] for o in outs], dim=1)
-        return logits, sampled, reports
+
+    @staticmethod
+    def _params_key(params) -> tuple:
+        """What a graph reads of `params`: each leaf's address, shape,
+        strides and dtype. A leaf replaced in the dict changes the key; a
+        leaf updated in place does not, and the graph reads its new
+        values."""
+        return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                     for t in pytree.tree_leaves(params))
+
+    def _dispatch(self, name: str, params, x: torch.Tensor, t: int) -> Dict:
+        """Run program `name` for `t` steps on its device input `x`: one
+        graph replay for whole collect periods from an aligned clock on
+        CUDA, else op by op. The "window" program's outputs are the
+        caller's; "serve"'s packed output is read before the next
+        window."""
+        do_sample = self._sample_in_scan
+        body = self._window_body(name, params, do_sample, self._steps)
+        every = self.cfg.collect_every
+        graph = (self.device.type == "cuda" and not self._eager and t > 0
+                 and t % every == 0 and self._steps % every == 0)
+        self._steps += t
+        self.dispatches += 1
+        if not graph:
+            carry, outs = body(self._carry(), x)
+            self._uncarry(carry)
+            return outs
+        pkey = self._params_key(params)
+        key = (name, tuple(x.shape), do_sample, pkey)
+        g = self._graphs.get(key)
+        if g is None:
+            # graphs of earlier params would hold their pool memory for good
+            self._graphs = {k: v for k, v in self._graphs.items()
+                            if k[3] == pkey}
+            return self._first_window(key, body, x, do_sample)
+        self._to_static()
+        g.x.copy_(x)
+        g.graph.replay()
+        kops.add_counts(g.counts)
+        self.replays += 1
+        if name == "window":
+            return pytree.tree_map(torch.clone, g.outs)
+        return g.outs
+
+    def _first_window(self, key, body: Callable, x: torch.Tensor,
+                      do_sample: bool) -> Dict:
+        """A shape's first window runs for real on the capture stream (so
+        that per-stream state, such as access_scan's scratch, exists before
+        the capture), then the program is captured on that stream; a
+        capture runs nothing, so the window does not advance twice."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self._mempool = torch.cuda.graph_pool_handle()
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            carry, outs = body(self._carry(), x)
+        cur.wait_stream(self._side)
+        self._uncarry(carry)
+        self._to_static()
+        static_x = x.clone()
+        graph = torch.cuda.CUDAGraph()
+        if do_sample:
+            graph.register_generator_state(self._gen)
+        snap = kops.count_snapshot()
+        try:
+            with torch.cuda.graph(graph, pool=self._mempool,
+                                  stream=self._side):
+                new, static_outs = body(self._carry(), static_x)
+                self._write_back(new)
+        finally:
+            counts = kops.counts_since(snap)
+        self._graphs[key] = _Graph(graph, static_x, static_outs, counts)
+        return outs
+
+    def _to_static(self) -> None:
+        """Bind the carry to the static carry the graphs read and write.
+        The first time, the current leaves are cloned into it, except the
+        pool's `data`, which is adopted as it is (updated in place, never
+        copied); after that, each leaf rebound since (by `reset`, an eager
+        window or `serve`'s hand-back) is copied into its buffer."""
+        leaves, spec = pytree.tree_flatten(self._carry())
+        if self._static is None:
+            data = self.state["pool"]["data"]
+            self._static = [t if t is data else t.clone() for t in leaves]
+            self._spec = spec
+        else:
+            if spec != self._spec:
+                raise RuntimeError("the serving carry changed its structure")
+            for buf, t in zip(self._static, leaves):
+                if t is not buf:
+                    buf.copy_(t)
+        self._uncarry(pytree.tree_unflatten(self._static, self._spec))
+
+    def _write_back(self, carry: Dict) -> None:
+        """The end of a captured body: copy each leaf the window replaced
+        into its static buffer. A new leaf that is a view of a static
+        buffer would be overwritten by an earlier copy: it raises."""
+        leaves, spec = pytree.tree_flatten(carry)
+        if spec != self._spec:
+            raise RuntimeError("the window changed the carry's structure")
+        owned = {b.untyped_storage().data_ptr() for b in self._static}
+        for buf, t in zip(self._static, leaves):
+            if t is buf:
+                continue
+            if t.untyped_storage().data_ptr() in owned:
+                raise RuntimeError("a window output aliases the static carry")
+            buf.copy_(t)
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         """A host array on the server's device. On CUDA the copy goes
@@ -192,25 +397,25 @@ class Server:
         """tokens: [B] -> (logits [B, V], None). One step of the window
         protocol (arm / collect when the clock says so); the per-step
         reference for `decode_window`."""
-        logits, _, reports = self._run(params, self._tokens(tokens)[:, None])
-        self.dispatches += 1
-        self.reports.extend(eng.window_reports(reports))
-        return logits[:, 0], None
+        outs = self._dispatch("window", params,
+                              self._tokens(tokens)[:, None], 1)
+        self.reports.extend(eng.window_reports(outs["reports"]))
+        return outs["logits"][:, 0], None
 
     def decode_window(self, params, tokens, w: Optional[int] = None):
         """Run a whole decode window. tokens: [B, T] — entries >= 0 are
         teacher-forced, < 0 self-feed the previous token; or [B] (a seed
         token per lane) with `w`, running `w` steps. Returns (logits
         [B, T, V], sampled [B, T], collect reports of the window — feed to
-        engine.window_reports)."""
+        engine.window_reports). T a multiple of collect_every from an
+        aligned clock is a graph replay on CUDA."""
         toks = self._tokens(tokens)
         if toks.dim() == 1:
             toks = torch.cat([toks[:, None], torch.full(
                 (toks.shape[0], (w or 1) - 1), -1, dtype=_I32,
                 device=self.device)], dim=1)
-        logits, sampled, reports = self._run(params, toks)
-        self.dispatches += 1
-        return logits, sampled, reports
+        outs = self._dispatch("window", params, toks, toks.shape[1])
+        return outs["logits"], outs["tok"], outs["reports"]
 
     # -- generate -------------------------------------------------------------
     def generate(self, params, prompts, max_new: int, *, greedy: bool = True,
@@ -218,13 +423,15 @@ class Server:
         """prompts: [B, P], teacher-forced through the decode windows, then
         `max_new` tokens, W = cfg.window or collect_every steps per window.
         `greedy=False` samples with cfg.temperature/cfg.top_k on every lane
-        and REQUIRES a `generator` on the server's device."""
+        and REQUIRES a `generator` on the server's device; the server draws
+        from its own generator, set to `generator`'s state (which does not
+        advance)."""
         if not greedy and generator is None:
             raise ValueError("generate(greedy=False) needs a torch.Generator")
         prompts = self._tokens(prompts)
         b, p = prompts.shape
         if generator is not None:
-            self._gen = generator
+            self._gen.set_state(generator.get_state())
         self._sample_in_scan = not greedy
         temp = 0.0 if greedy else self.cfg.temperature
         self._temp = torch.full((b,), temp, dtype=torch.float32,
@@ -250,14 +457,17 @@ class Server:
               generator: Optional[torch.Generator] = None,
               max_windows: Optional[int] = None) -> List[Completion]:
         """Continuous-batching queue driver. Each window: resolve lane events
-        on the host (finished lanes free ALL their KV through the pool op
-        stream, queued requests admit), build the window's forced tokens
-        (prompt tokens per lane, -1 self-feeds), run the window, and sync
-        once — the sampled tokens, the collect reports and the RSS gauges in
-        one device-to-host copy — to schedule the lanes. A lane finishes on
-        EOS, on its max_new, or at lane capacity (max_len). The final lanes
-        drain through one all-inactive window so every request's KV leaves
-        the pool. Returns one `Completion` per request, in order."""
+        on the host, upload them with the window's forced tokens (prompt
+        tokens per lane, -1 self-feeds) in one copy, run the "serve"
+        program (finished lanes free ALL their KV through the pool op
+        stream, queued requests admit, then W steps and the collects: one
+        graph replay on CUDA), and sync once — the sampled tokens, the
+        collect reports and the RSS gauges in one device-to-host copy — to
+        schedule the lanes. Sampling draws from the server's generator, set
+        to `generator`'s state. A lane finishes on EOS, on its max_new, or
+        at lane capacity (max_len). The final lanes drain through one
+        all-inactive window so every request's KV leaves the pool. Returns
+        one `Completion` per request, in order."""
         w = self.cfg.window or self.cfg.collect_every
         every = self.cfg.collect_every
         if w % every != 0:
@@ -279,7 +489,7 @@ class Server:
         self.reset(active=False)
         self._sample_in_scan = do_sample
         if generator is not None:
-            self._gen = generator
+            self._gen.set_state(generator.get_state())
         queue = collections.deque(enumerate(requests))
         lanes: List[Optional[_Lane]] = [None] * b
         results: List[Optional[Completion]] = [None] * len(requests)
@@ -289,6 +499,7 @@ class Server:
         window_idx = 0
         dev = self.device
         pcfg = self.kv_cfg.pool_config()
+        n_rep, n_keys = w // every, len(eng.REPORT_KEYS)
         while True:
             free = np.zeros((b,), bool)
             admit = np.zeros((b,), bool)
@@ -323,38 +534,21 @@ class Server:
                 row[:n_force] = prompt[ln.steps:ln.steps + n_force]
                 toks[i] = row
 
-            # lane events at the window entry, then W steps + collect; the
+            # lane events at the window entry, then W steps + collects: the
             # window's inputs go to the device in one copy
             host = np.concatenate([free, admit, topk, toks.ravel(),
                                    temp.view(np.int32)]).astype(np.int32)
-            inp = self._upload(host)
-            free_t, admit_t = inp[:b].bool(), inp[b:2 * b].bool()
-            kv = kvc.free_lanes(self.kv_cfg, self.state, free_t)
-            self.state = kvc.admit_lanes(kv, admit_t)
-            self._temp = torch.where(
-                admit_t, inp[3 * b + b * w:].view(torch.float32), self._temp)
-            self._topk = torch.where(admit_t, inp[2 * b:3 * b], self._topk)
-            _, sampled, reports = self._run(
-                params, inp[3 * b:3 * b + b * w].view(b, w))
-            self.dispatches += 1
+            outs = self._dispatch("serve", params, self._upload(host), w)
             window_idx += 1
 
-            # the window's one sync: tokens, reports and gauges together
-            rss = pl.rss_bytes(pcfg, self.state["pool"])
-            live = (self.state["block_tables"] >= 0).sum()
-            gauges = torch.stack([rss.double(), live.double()])
-            n_rep = len(reports)
-            keys = list(reports[0]) if reports else []
-            rep_vals = [r[k].double() for r in reports for k in keys]
-            host = torch.cat([sampled.flatten().double(), gauges,
-                              torch.stack(rep_vals) if rep_vals else
-                              gauges[:0]]).cpu().tolist()
+            # the window's one sync: tokens, gauges and reports together
+            host = outs["packed"].cpu().tolist()
             sampled_h = np.asarray(host[:b * w], np.int64).reshape(b, w)
             rss_h, live_h = host[b * w], host[b * w + 1]
             vals = host[b * w + 2:]
             for j in range(n_rep):
                 self.reports.append(dict(zip(
-                    keys, vals[j * len(keys):(j + 1) * len(keys)])))
+                    eng.REPORT_KEYS, vals[j * n_keys:(j + 1) * n_keys])))
 
             for i, ln in enumerate(lanes):
                 if ln is None:
@@ -391,19 +585,25 @@ class Server:
 
     def reset(self, active: bool = True) -> None:
         """Fresh serving state (empty pool, zeroed clock, reports and
-        sampling state). `active=False` starts every lane empty."""
+        sampling state). `active=False` starts every lane empty. Once a
+        graph exists the fresh values are copied into the static carry,
+        which the graphs go on reading; the captured graphs are kept."""
         self.state = kvc.init(self.kv_cfg, backend=self.backend,
                               active=active, device=self.device)
         b = self.cfg.batch
         self._steps = 0
         self._last_tok = torch.zeros(b, dtype=_I32, device=self.device)
-        self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self._gen.manual_seed(0)
         self._temp = torch.zeros(b, dtype=torch.float32, device=self.device)
         self._topk = torch.zeros(b, dtype=_I32, device=self.device)
+        if self._static is not None:
+            # the graphs read the static carry: write the fresh state into it
+            self._to_static()
         self._sample_in_scan = False
         self.reports = []
         self.serve_log = []
         self.dispatches = 0
+        self.replays = 0                   # windows run as a graph replay
 
     # -- metrics --------------------------------------------------------------
     def kv_rss_bytes(self) -> float:

@@ -1,10 +1,13 @@
 """The port's collector, MIAD and backends against the JAX package, bit
 for bit: pool state and every window-report field after collect +
-backend windows with `null`, `proactive` and `reactive`, including
-move_budget deferral and an ATC-armed window. Also the plain versions of
-the `access_scan` and `migrate` kernels against the JAX kernels (Pallas,
-interpret mode), including a migration where a cold mover's destination
-is a hot mover's source."""
+backend windows with each of the six backends, including move_budget
+deferral and an ATC-armed window. `cap`, `mglru` and `promote` also see
+writes and a window that pages every other superblock out (a store to a
+HOST superblock leaves it there, referenced, which is what `promote`
+promotes); each must demote, and `promote` promote. Also the plain
+versions of the `access_scan` and `migrate` kernels against the JAX
+kernels (Pallas, interpret mode), including a migration where a cold
+mover's destination is a hot mover's source."""
 import functools
 
 import jax
@@ -34,15 +37,26 @@ def _reads(rng, hot, n):
     return (tpl.OP_READ, ids.astype(np.int32), np.zeros((n, 8), np.float32))
 
 
+# the backends ported with the window graphs: their traces add writes
+WRITES = ("cap", "mglru", "promote")
+
+
 @pytest.mark.parametrize("backend,budget", [
     ("null", 2), ("proactive", 2), ("reactive", 2), ("proactive", 256),
-    ("reactive", 256)])
+    ("reactive", 256), ("cap", 2), ("cap", 256), ("mglru", 256),
+    ("promote", 256)])
 def test_collect_windows_bit_identical(backend, budget):
     rng = np.random.default_rng(3)
     cfg_t = tpl.make_config(48, 8, sb_slots=4, page_slots=2)
     cfg_j = jax_pool_config(cfg_t)
     params = tbe.pressure_params(backend, 3 * cfg_t.sb_bytes)
     assert params == jbe.pressure_params(backend, 3 * cfg_t.sb_bytes)
+    if backend == "promote":
+        # high above the three superblocks the hot set keeps resident, so
+        # that a referenced HOST superblock has room to return, and low at
+        # them, so that promotion re-arms
+        params = dict(hbm_high_bytes=4 * cfg_t.sb_bytes,
+                      hbm_low_bytes=3 * cfg_t.sb_bytes)
     jb, tb = jbe.make(backend, **params), tbe.make(backend, **params)
     jcab = jax.jit(functools.partial(
         jeng.collect_and_backend, cfg_j,
@@ -53,17 +67,34 @@ def test_collect_windows_bit_identical(backend, budget):
     alloc = [(tpl.OP_ALLOC, ids,
               rng.normal(size=(20, 8)).astype(np.float32))]
     jstate, tstate, _ = run_both(cfg_t, alloc)
+    # the backends' carried state rides the pool state, as kvcache.init sets
+    jstate = dict(jstate, bstate=jb.init(cfg_j))
+    tstate = dict(tstate, bstate=tb.init(cfg_t))
     hot = rng.choice(20, 6, replace=False)
     hot_moves, cold_moves, skipped = [], [], 0
+    demoted = promoted = 0
     for window in range(9):
         if window == 4:                  # an ATC-armed window
             jstate, tstate = jcol.arm(jstate), tcol.arm(tstate)
+        if window == 5 and backend in WRITES:
+            # every other superblock paged out: the written ones stay on
+            # HOST, referenced; the hot set's fault back in
+            tier = to_np(tstate["sb_tier"]).copy()
+            evict = to_np(tstate["sb_evict"]).copy()
+            tier[::2], evict[::2] = tpl.HOST, tpl.PAGED_OUT
+            jstate = dict(jstate, sb_tier=jnp.asarray(tier),
+                          sb_evict=jnp.asarray(evict))
+            tstate = dict(tstate, sb_tier=torch.from_numpy(tier),
+                          sb_evict=torch.from_numpy(evict))
         trace = [_reads(rng, hot, 8) for _ in range(3)]
         if window == 2:                  # churn: free some, allocate anew
             trace.append((tpl.OP_FREE, ids[12:18], np.zeros((6, 8),
                                                              np.float32)))
             trace.append((tpl.OP_ALLOC, np.arange(42, 46, dtype=np.int32),
                           rng.normal(size=(4, 8)).astype(np.float32)))
+        if backend in WRITES:
+            trace.append((tpl.OP_WRITE, ids,
+                          rng.normal(size=(20, 8)).astype(np.float32)))
         jstate, tstate, reads = run_both(cfg_t, trace, jstate, tstate)
         for jv, tv in reads:
             assert np.array_equal(jv, tv)
@@ -76,7 +107,12 @@ def test_collect_windows_bit_identical(backend, budget):
         hot_moves.append(tr["moved_to_hot"])
         cold_moves.append(tr["moved_to_cold"])
         skipped += tr["skipped_atc"]
+        demoted += tr["be_demoted"]
+        promoted += tr["be_promoted"]
     assert skipped > 0, "the armed window vetoed no migration"
+    if backend in WRITES:
+        assert demoted > 0, f"{backend} demoted nothing"
+        assert (promoted > 0) == (backend == "promote"), promoted
     if budget == 2:
         # the budget saturates and defers movers to later windows
         assert max(hot_moves) == 2 and sum(hot_moves) > 2

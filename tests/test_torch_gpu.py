@@ -621,3 +621,176 @@ def test_falcon_mamba_on_card_matches_cpu(cuda, monkeypatch):
     for k in ("h", "conv"):
         assert (s_cpu["ssm"][k] - s_gpu["ssm"][k].cpu()).abs().max().item() \
             < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the serve window as one CUDA graph replay
+# ---------------------------------------------------------------------------
+BACKENDS = ("null", "proactive", "reactive", "cap", "mglru", "promote")
+
+
+def _graph_pair(backend="proactive", dtype="float32", overlap=False):
+    """(model, params, graph server, eager server): chatglm3-6b reduced on
+    the card, W = 2 * collect_every, the backend under full pressure."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import backend as be
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.server import Server, ServerConfig
+    cfg = dataclasses.replace(get_config("chatglm3-6b", reduced=True),
+                              dtype=dtype)
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    bp = be.pressure_params(backend, 1)
+    kw = dict(batch=2, max_len=32, block_tokens=4, collect_every=4, window=8,
+              overlap_collect=overlap, backend=backend,
+              backend_params=dict(bp, min_evict_gen=0)
+              if backend == "mglru" else bp)
+    graph, eager = Server(model, ServerConfig(**kw)), \
+        Server(model, ServerConfig(**kw))
+    eager._eager = True
+    return model, params, graph, eager
+
+
+def _graph_requests(seed, temperature=0.0):
+    from repro_torch.runtime.server import Request
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, 256, int(rng.integers(2, 9)))
+                    .tolist(), max_new=int(rng.integers(3, 12)),
+                    temperature=temperature, top_k=8 if temperature else 0)
+            for _ in range(6)]
+
+
+def _counted(fn):
+    snap = tops.count_snapshot()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tops.counts_since(snap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_graph_serve_matches_eager(cuda, backend, dtype):
+    """Two serve calls on one server (the second through `reset`), each
+    window after the first a graph replay, against the same calls op by
+    op: identical Completions, reports, per-window gauges, every leaf of
+    the state (pool data included) bit for bit, and the same kernel
+    launches counted; the pool's `data` never leaves its storage."""
+    import dataclasses
+    _, params, g, e = _graph_pair(backend, dtype, overlap=dtype == "bfloat16")
+    ptr = None
+    for call in range(2):
+        reqs = _graph_requests(call)
+        rg, cg = _counted(lambda: g.serve(params, reqs))
+        re_, ce = _counted(lambda: e.serve(params, reqs))
+        assert [dataclasses.asdict(r) for r in rg] == \
+            [dataclasses.asdict(r) for r in re_], call
+        assert g.reports == e.reports and g.serve_log == e.serve_log
+        assert cg == ce and cg["launches"]["paged_attention"] > 0, (cg, ce)
+        fg, fe = _flat(g.state), _flat(e.state)
+        assert sorted(fg) == sorted(fe)
+        for k in fg:
+            assert torch.equal(fg[k], fe[k]), (call, k)
+        data = g.state["pool"]["data"]
+        ptr = ptr or data.untyped_storage().data_ptr()
+        assert data.untyped_storage().data_ptr() == ptr
+        assert g.dispatches == len(g.serve_log) > 2
+    assert len(g._graphs) == 1 and not e._graphs
+
+
+@pytest.mark.gpu
+def test_graph_sampled_serve_matches_eager(cuda):
+    """Sampled requests from the same generator seed: identical tokens,
+    graph against eager, the sampled program replaying with the server's
+    generator registered; another seed draws other tokens."""
+    _, params, g, e = _graph_pair()
+    reqs = _graph_requests(5, temperature=0.9)
+    rg = g.serve(params, reqs,
+                 generator=torch.Generator(device="cuda").manual_seed(3))
+    re_ = e.serve(params, reqs,
+                  generator=torch.Generator(device="cuda").manual_seed(3))
+    assert [r.tokens for r in rg] == [r.tokens for r in re_]
+    assert g.reports == e.reports
+    assert len(g._graphs) == 1 and g.replays > 0
+    again = g.serve(params, reqs,
+                    generator=torch.Generator(device="cuda").manual_seed(4))
+    assert [r.tokens for r in again] != [r.tokens for r in rg]
+
+
+@pytest.mark.gpu
+def test_graph_generate_and_decode_window_match_eager(cuda):
+    """`generate` (aligned windows replay the "window" program, the last
+    short one runs the generic loop) and an aligned `decode_window` after
+    it, graph against eager: identical tokens, logits, reports and state;
+    a replay's outputs are the caller's own (cloned), not the graph's."""
+    _, params, g, e = _graph_pair(overlap=True)
+    prompts = np.random.default_rng(3).integers(0, 256, (2, 5))
+    for srv in (g, e):
+        srv.reset()
+    out_g, out_e = (s.generate(params, prompts, max_new=13) for s in (g, e))
+    assert torch.equal(out_g, out_e)
+    assert g.reports == e.reports
+    toks = np.random.default_rng(4).integers(0, 256, (2, 8))
+    g.reset()
+    e.reset()
+    lg1, sg1, _ = g.decode_window(params, toks)
+    lg2, sg2, rg = g.decode_window(params, toks)   # a replay
+    le1, se1, _ = e.decode_window(params, toks)
+    le2, se2, re_ = e.decode_window(params, toks)
+    for a, b in ((lg1, le1), (lg2, le2), (sg1, se1), (sg2, se2)):
+        assert torch.equal(a, b)
+    assert not torch.equal(lg1, lg2)
+    from repro_torch.core import engine as eng
+    assert eng.window_reports(rg) == eng.window_reports(re_)
+    fg, fe = _flat(g.state), _flat(e.state)
+    assert all(torch.equal(fg[k], fe[k]) for k in fg)
+    assert {k[0] for k in g._graphs} == {"window"}
+
+
+@pytest.mark.gpu
+def test_graph_capture_failure_raises(cuda, monkeypatch):
+    """A window that reads the device on the host cannot be captured: the
+    serve raises, and nothing runs it eagerly instead."""
+    from repro_torch.core import pool as pl
+    _, params, g, _ = _graph_pair()
+    rss = pl.rss_bytes
+
+    def host_read(cfg, state):
+        out = rss(cfg, state)
+        float(out)                       # a device-to-host read
+        return out
+    monkeypatch.setattr(pl, "rss_bytes", host_read)
+    with pytest.raises(RuntimeError):
+        g.serve(params, _graph_requests(0))
+    assert not g._graphs
+
+
+@pytest.mark.gpu
+def test_graph_follows_params(cuda):
+    """The graphs are keyed by what they read of `params`: a weight updated
+    in place replays the same graph, which reads its new values; a weight
+    replaced in the dict captures anew and drops the old graph. Every
+    serve matches the eager server given the same params, bit for bit."""
+    import dataclasses
+    _, params, g, e = _graph_pair()
+    reqs = _graph_requests(7)
+
+    def serve_both():
+        rg, re_ = g.serve(params, reqs), e.serve(params, reqs)
+        assert [dataclasses.asdict(r) for r in rg] == \
+            [dataclasses.asdict(r) for r in re_]
+        assert g.reports == e.reports and g.replays > 0
+        fg, fe = _flat(g.state), _flat(e.state)
+        assert all(torch.equal(fg[k], fe[k]) for k in fg)
+        return [r.tokens for r in rg]
+
+    first = serve_both()
+    keys = set(g._graphs)
+    # the final norm's multiplier is 1 + scale (zero at init): -1, then 1
+    params["final_ln"].sub_(2.0)                   # in place: same graph
+    flipped = serve_both()
+    assert flipped != first and set(g._graphs) == keys
+    params["final_ln"] = params["final_ln"] + 2.0  # a new tensor
+    assert serve_both() == first
+    assert len(g._graphs) == 1 and set(g._graphs).isdisjoint(keys)
