@@ -1,8 +1,8 @@
 """Public model facade of the port (counterpart of `repro/models/model.py`
-for the dense decoder and the ssm family): the config, the device the
-weights live on, a seeded random init, and the step functions on the JAX
-package's batch dicts ({"tokens"} for forward / prefill, {"tokens",
-"labels"} for loss).
+for the dense and MoE decoders and the ssm family): the config, the
+device the weights live on, a seeded random init, and the step functions
+on the JAX package's batch dicts ({"tokens"} for forward / prefill,
+{"tokens", "labels"} for loss).
 """
 from __future__ import annotations
 

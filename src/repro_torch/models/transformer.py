@@ -1,4 +1,4 @@
-"""The decoder-only LM (port of the dense and ssm branches of
+"""The decoder-only LM (port of the dense, MoE and ssm branches of
 `repro/models/transformer.py`): init, the full-sequence forward and loss
 (`attn_ffn_block`, `lm_forward`, `lm_loss`), and single-token decode
 (`init_decode_state`, `lm_decode_step`) over a dense ring cache
@@ -6,8 +6,9 @@
 (falcon-mamba: mamba1 layers, `models/ssm.py`), an O(1) recurrent state.
 
 Parameters are a plain dict: {"embed" [V, D], "final_ln" [D], "out" [D, V]
-(absent with tied embeddings), "layers": [one dict per layer]}; a dense
-layer holds attention and FFN weights, an ssm layer {"ln", "m"}. The JAX
+(absent with tied embeddings), "layers": [one dict per layer]}; an
+attention layer holds attention weights and "ffn" (dense) or "moe"
+(`models/moe.py`), an ssm layer {"ln", "m"}. The JAX
 package stacks the layer dicts on a leading [L] axis; the port keeps a
 list, since its layers run as a Python loop (`convert.py` unstacks).
 """
@@ -21,6 +22,7 @@ from repro_torch.configs.base import MAMBA1
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 ATTN_IMPLS = ("full", "blockwise", "flash")
@@ -32,8 +34,6 @@ def _normal(shape, scale: float, dtype, generator, device) -> torch.Tensor:
 
 
 def init_attn_layer(cfg, dtype, generator, device) -> dict:
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -41,25 +41,30 @@ def init_attn_layer(cfg, dtype, generator, device) -> dict:
 
     def nrm(shape, scale):
         return _normal(shape, scale, dtype, generator, device)
-    ffn = {"wi": nrm((d, cfg.d_ff), s),
-           "wo": nrm((cfg.d_ff, d), cfg.d_ff ** -0.5)}
-    if cfg.mlp_gated:
-        ffn["wg"] = nrm((d, cfg.d_ff), s)
+    # the FFN (or MoE) draws from the generator before the attention
+    if cfg.num_experts:
+        ff = {"moe": moe_lib.init_moe(cfg, dtype, generator, device)}
+    else:
+        ffn = {"wi": nrm((d, cfg.d_ff), s),
+               "wo": nrm((cfg.d_ff, d), cfg.d_ff ** -0.5)}
+        if cfg.mlp_gated:
+            ffn["wg"] = nrm((d, cfg.d_ff), s)
+        ff = {"ffn": ffn}
     return {
         "ln1": torch.zeros(d, dtype=torch.float32, device=device),
         "ln2": torch.zeros(d, dtype=torch.float32, device=device),
         "wq": nrm((d, nq), s), "wk": nrm((d, nkv), s),
         "wv": nrm((d, nkv), s), "wo": nrm((nq, d), nq ** -0.5),
-        "ffn": ffn,
+        **ff,
     }
 
 
 def _check_ported(cfg) -> None:
-    """The port runs the dense family and the ssm family of mamba1 layers
-    (falcon-mamba); every other family raises."""
-    dense = cfg.family == "dense" and not cfg.block_pattern
+    """The port runs the dense and MoE families and the ssm family of
+    mamba1 layers (falcon-mamba); every other family raises."""
+    attn = cfg.family in ("dense", "moe") and not cfg.block_pattern
     ssm = cfg.family == "ssm" and set(cfg.blocks) == {MAMBA1}
-    if not (dense or ssm) or cfg.is_encoder_decoder:
+    if not (attn or ssm) or cfg.is_encoder_decoder:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
@@ -69,7 +74,7 @@ def _no_hiddens(cfg, return_hiddens: bool) -> None:
 
 
 def init_lm(cfg, generator: torch.Generator, device) -> dict:
-    """Random weights for a dense or ssm decoder, at the JAX package's
+    """Random weights for a dense, MoE or ssm decoder, at the JAX package's
     shapes and scales (the values differ: torch's generator is not
     JAX's)."""
     _check_ported(cfg)
@@ -105,24 +110,43 @@ def _qkv(p, x, cfg, positions):
     return L.positional(cfg, q, positions), L.positional(cfg, k, positions), v
 
 
+def _ffn(p: dict, h: torch.Tensor, cfg, decode: bool = False):
+    """The FFN half of a layer on the normed stream h [B, S, D]: (out, aux
+    loss, expert counts [E] int32) for a MoE layer — at decode the
+    gathered variant when cfg.hades.expert_gather_decode and T*k < E, as in
+    JAX, and with no aux loss (None), which decode discards — and (out,
+    None, None) for a dense one."""
+    if not cfg.num_experts:
+        return L.mlp(p["ffn"], h, cfg.mlp_gated), None, None
+    t = h.shape[0] * h.shape[1]
+    if decode and cfg.hades.expert_gather_decode and \
+            t * cfg.experts_per_token < cfg.num_experts:
+        return moe_lib.moe_block_gathered(p["moe"], h, cfg)
+    return moe_lib.moe_block(p["moe"], h, cfg, with_aux=not decode)
+
+
 def decode_layer_step(p: dict, x: torch.Tensor, cfg, positions, attend_fn):
     """One decoder layer of single-token decode, with the KV mechanics
     supplied by the caller. x: [B,1,D]; positions: [B,1];
     attend_fn(q, k, v) -> (attention out reshapeable to [B,1,H*Dh], aux)
-    with q [B,1,H,Dh] and k/v [B,1,KV,Dh]. Returns (x', aux)."""
+    with q [B,1,H,Dh] and k/v [B,1,KV,Dh]. Returns (x', aux, expert
+    counts): [E] int32 for a MoE layer, None for a dense one (JAX returns
+    zeros there; no caller of the port reads them)."""
     b = x.shape[0]
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg, positions)
     o, aux = attend_fn(q, k, v)
     x = x + o.reshape(b, 1, -1) @ p["wo"]
-    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(p["ffn"], h2, cfg.mlp_gated), aux
+    f, _, counts = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                        decode=True)
+    return x + f, aux, counts
 
 
 def attn_ffn_block(p: dict, x: torch.Tensor, cfg, positions, *,
                    attn_impl: str = "blockwise"):
     """Full-sequence causal block. x: [B, S, D]; positions: [B, S] (or
-    mrope's [3, B, S]). Returns (x', (k, v)). `flash` runs the
+    mrope's [3, B, S]). Returns (x', aux loss, (k, v), expert counts [E]
+    int32); aux and counts are None for a dense layer. `flash` runs the
     flash_attention kernel, whose mask ignores `positions`, as the TPU
     kernel's does."""
     b, s, _ = x.shape
@@ -142,8 +166,8 @@ def attn_ffn_block(p: dict, x: torch.Tensor, cfg, positions, *,
     else:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     x = x + o.reshape(b, s, -1) @ p["wo"]
-    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(p["ffn"], h2, cfg.mlp_gated), (k, v)
+    f, aux, counts = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + f, aux, (k, v), counts
 
 
 def _pos2d(positions):
@@ -179,9 +203,11 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     Python loop over params["layers"]. `return_cache` puts "kv_cache" =
     (k, v), each [L, B, S, KV, Dh] after rotary, in aux (None for the ssm
     family, as in JAX); `return_hiddens` puts "hiddens" [L, B, S, D], the
-    post-layer residual stream (attn-family layers only). ssm layers
-    ignore `positions` and `attn_impl`. (The dense and ssm families have
-    no MoE auxiliary loss or expert counts.)"""
+    post-layer residual stream (attn-family layers only). For the
+    attention family aux also holds, as in JAX, "moe_aux_loss" (fp32, the
+    sum over layers), "expert_counts" [E] and "expert_counts_per_layer"
+    [L, E] int32 (zeros, with E = 1, for a dense config). ssm layers
+    ignore `positions` and `attn_impl`."""
     _check_forward(cfg, remat, extra_embeds, enc_embeds)
     _no_hiddens(cfg, return_hiddens)
     x = L.embed(params["embed"], tokens)
@@ -195,14 +221,25 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    kvs, hs = [], []
+    kvs, hs, losses, counts = [], [], [], []
     for lp in params["layers"]:
-        x, kv = attn_ffn_block(lp, x, cfg, positions, attn_impl=attn_impl)
+        x, loss, kv, cnt = attn_ffn_block(lp, x, cfg, positions,
+                                          attn_impl=attn_impl)
         if return_cache:
             kvs.append(kv)
         if return_hiddens:
             hs.append(x)
-    aux = {}
+        losses.append(loss)
+        counts.append(cnt)
+    if cfg.num_experts:
+        per_layer = torch.stack(counts)
+        aux = {"moe_aux_loss": torch.stack(losses).sum()}
+    else:
+        per_layer = torch.zeros((cfg.num_layers, 1), dtype=torch.int32,
+                                device=x.device)
+        aux = {"moe_aux_loss": torch.zeros((), device=x.device)}
+    aux["expert_counts"] = per_layer.sum(0, dtype=torch.int32)
+    aux["expert_counts_per_layer"] = per_layer
     if return_cache:
         aux["kv_cache"] = (torch.stack([k for k, _ in kvs]),
                            torch.stack([v for _, v in kvs]))
@@ -214,7 +251,8 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
 def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
             *, extra_embeds=None, enc_embeds=None,
             attn_impl: str = "blockwise", remat: str = "none"):
-    """Next-token cross entropy (mean over labels != -100)."""
+    """Next-token cross entropy (mean over labels != -100), plus 0.01 x
+    the MoE auxiliary loss for a MoE config."""
     logits, aux = lm_forward(params, cfg, tokens, extra_embeds=extra_embeds,
                              enc_embeds=enc_embeds, attn_impl=attn_impl,
                              remat=remat)
@@ -222,7 +260,10 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(mask, labels, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1), aux
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    return loss, aux
 
 
 def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:

@@ -132,7 +132,7 @@ class _Graph:
 
 
 class Server:
-    """Decode-only server for the dense attention decoder."""
+    """Decode-only server for the dense and MoE attention decoders."""
 
     def __init__(self, model, cfg: ServerConfig):
         if model.cfg.block_pattern:
@@ -163,8 +163,10 @@ class Server:
     def _model_step(self, params, state, tok):
         """tok [B] -> (state', logits [B, V]). Each layer derives qkv from
         the current residual stream, appends its k/v to the paged pool and
-        attends through the object table; pos still points AT the new token
-        during the layers, so the token attends to itself via pos + 1."""
+        attends through the object table, then runs its FFN or MoE (whose
+        expert counts are dropped, as in JAX); pos still points AT the new
+        token during the layers, so the token attends to itself via
+        pos + 1."""
         mc = self.model.cfg
         cfg = self.kv_cfg
         x = L.embed(params["embed"], tok)[:, None, :]        # [B,1,D]
@@ -175,7 +177,7 @@ class Server:
                 out, st = kvc.attend(cfg, st, li, q[:, 0],
                                      seq_lens=st["pos"] + 1)
                 return out[:, None], st
-            x, state = T.decode_layer_step(lp, x, mc, positions, attend)
+            x, state, _ = T.decode_layer_step(lp, x, mc, positions, attend)
         state = kvc.advance_pos(state)
         h = L.rms_norm(x, params["final_ln"], mc.norm_eps)
         out_t = params["embed"].T if mc.tie_embeddings else params["out"]

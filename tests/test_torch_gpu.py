@@ -629,16 +629,16 @@ def test_falcon_mamba_on_card_matches_cpu(cuda, monkeypatch):
 BACKENDS = ("null", "proactive", "reactive", "cap", "mglru", "promote")
 
 
-def _graph_pair(backend="proactive", dtype="float32", overlap=False):
-    """(model, params, graph server, eager server): chatglm3-6b reduced on
-    the card, W = 2 * collect_every, the backend under full pressure."""
+def _graph_pair(backend="proactive", dtype="float32", overlap=False,
+                arch="chatglm3-6b"):
+    """(model, params, graph server, eager server): `arch` reduced on the
+    card, W = 2 * collect_every, the backend under full pressure."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core import backend as be
     from repro_torch.models.model import Model
     from repro_torch.runtime.server import Server, ServerConfig
-    cfg = dataclasses.replace(get_config("chatglm3-6b", reduced=True),
-                              dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype)
     model = Model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     bp = be.pressure_params(backend, 1)
@@ -794,3 +794,121 @@ def test_graph_follows_params(cuda):
     params["final_ln"] = params["final_ln"] + 2.0  # a new tensor
     assert serve_both() == first
     assert len(g._graphs) == 1 and set(g._graphs).isdisjoint(keys)
+
+
+# ---------------------------------------------------------------------------
+# the MoE block (olmoe-1b-7b, mixtral-8x7b) on the card
+# ---------------------------------------------------------------------------
+def _moe_inputs(arch, dtype, b, s, seed, bias=0.0):
+    """(cfg, params, x) on the CPU: weights from a seeded generator, x from
+    numpy, pushed `bias` along expert seed % E's router column so that
+    routing concentrates (and drops tokens at B=4 x S=64)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype=str(dtype)[6:])
+    p = moe.init_moe(cfg, dtype, torch.Generator().manual_seed(0), "cpu")
+    x = np.random.default_rng(seed).normal(size=(b, s, cfg.d_model))
+    col = p["router"][:, seed % cfg.num_experts].numpy()
+    x = x + bias * col / np.linalg.norm(col) * np.sqrt(cfg.d_model)
+    return cfg, p, torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+def _drop_case(cfg, counts, t):
+    """(tokens dropped, whether the drop bin row n holds a kept slot)."""
+    from repro_torch.models import moe
+    g, n = moe.capacity(t, cfg), t * cfg.experts_per_token
+    cnt = counts.cpu().numpy()
+    return int(np.maximum(cnt - g, 0).sum()), bool(cnt[n // g] > n % g)
+
+
+# (arch, b, s, seed, bias): no drops, and drops with row n kept
+MOE_GPU_CASES = [("olmoe-1b-7b", 2, 8, 1, 0.0), ("mixtral-8x7b", 2, 8, 1, 0.0),
+                 ("olmoe-1b-7b", 4, 64, 5, 0.1),
+                 ("mixtral-8x7b", 4, 64, 3, 0.1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,b,s,seed,bias", MOE_GPU_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_block_on_card_matches_cpu(cuda, monkeypatch, arch, b, s, seed,
+                                       bias, dtype):
+    """`moe_block` on the card against the CPU on the same inputs: counts
+    and aux loss equal (fp32 within 1e-6), outputs within 1e-5 in fp32
+    (TF32 off) and within two bf16 ulps of the largest output in bf16; two
+    runs on the card bit for bit; the drop cases drop with row n kept."""
+    from repro_torch.models import moe
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, p, x = _moe_inputs(arch, dtype, b, s, seed, bias)
+    oc, ac, cc = moe.moe_block(p, x, cfg)
+    pg = _to(p, cuda)
+    og, ag, cg = moe.moe_block(pg, x.to(cuda), cfg)
+    og2, ag2, cg2 = moe.moe_block(pg, x.to(cuda), cfg)
+    assert torch.equal(og, og2) and torch.equal(ag, ag2) and \
+        torch.equal(cg, cg2)
+    assert torch.equal(cc, cg.cpu())
+    assert abs(float(ac) - float(ag)) < 1e-6
+    err = (oc.float() - og.cpu().float()).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else \
+        2 ** -6 * oc.float().abs().max().item()
+    assert err < tol, (err, tol)
+    drops, kept_n = _drop_case(cfg, cc, b * s)
+    if bias:
+        assert drops > 0 and kept_n, (drops, kept_n)
+    else:
+        assert drops == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b"])
+def test_moe_block_cuda_graph_replays_bit_for_bit(cuda, arch):
+    """`moe_block` (the drop case) captured in a CUDA graph: the capture
+    holds no host sync, and each replay on new inputs gives the eager
+    call's outputs bit for bit."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_inputs(arch, torch.bfloat16, 4, 64, 5, 0.1)
+    pg, xg = _to(p, cuda), x.to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.moe_block(pg, xg, cfg)                 # warm up on the stream
+    torch.cuda.current_stream().wait_stream(side)
+    static_x = xg.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = moe.moe_block(pg, static_x, cfg)
+    for seed in (5, 6):
+        new = _moe_inputs(arch, torch.bfloat16, 4, 64, seed, 0.1)[2]
+        static_x.copy_(new.to(cuda))
+        graph.replay()
+        want = moe.moe_block(pg, new.to(cuda), cfg)
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_graph_serve_matches_eager(cuda, dtype):
+    """olmoe-1b-7b reduced: two serve calls, each window after the first a
+    graph replay, against the same calls op by op: identical Completions,
+    reports, every leaf of the state bit for bit, and the same kernel
+    launches (one paged_attention per layer and step)."""
+    import dataclasses
+    model, params, g, e = _graph_pair(dtype=dtype, arch="olmoe-1b-7b",
+                                      overlap=dtype == "bfloat16")
+    for call in range(2):
+        reqs = _graph_requests(call)
+        rg, cg = _counted(lambda: g.serve(params, reqs))
+        re_, ce = _counted(lambda: e.serve(params, reqs))
+        assert [dataclasses.asdict(r) for r in rg] == \
+            [dataclasses.asdict(r) for r in re_], call
+        assert g.reports == e.reports and g.serve_log == e.serve_log
+        assert cg == ce, (cg, ce)
+        steps = len(g.serve_log) * g.cfg.window
+        assert cg["launches"]["paged_attention"] == \
+            steps * model.cfg.num_layers
+        fg, fe = _flat(g.state), _flat(e.state)
+        for k in fg:
+            assert torch.equal(fg[k], fe[k]), (call, k)
+        assert g.replays > 0 and g.kv_rss_bytes() == 0.0

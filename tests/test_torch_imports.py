@@ -25,7 +25,12 @@ def test_port_imports_no_jax_and_no_repro():
     assert {"repro_torch.runtime.server", "repro_torch.models.model",
             "repro_torch.models.transformer", "repro_torch.models.attention",
             "repro_torch.models.ssm", "repro_torch.kernels.ops",
-            "repro_torch.kernels.ref"} <= set(mods)
+            "repro_torch.kernels.ref", "repro_torch.models.moe",
+            "repro_torch.models.expert_tiering",
+            "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.glm4_9b",
+            "repro_torch.configs.granite_20b",
+            "repro_torch.configs.granite_34b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('\\n'.join(sorted(sys.modules)))\n")

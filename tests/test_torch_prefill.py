@@ -87,7 +87,8 @@ def test_lm_forward_matches_jax(attn_impl, dtype):
         assert _cache_close(got, want, dtype)
     assert tuple(taux["hiddens"].shape) == jaux["hiddens"].shape
     assert _cache_close(taux["hiddens"], jaux["hiddens"], dtype)
-    assert float(jaux["moe_aux_loss"]) == 0.0  # the port's loss omits it
+    # a dense config has no MoE aux loss: zero on both sides
+    assert float(jaux["moe_aux_loss"]) == float(taux["moe_aux_loss"]) == 0.0
 
 
 def test_flash_ignores_explicit_positions_like_jax():
