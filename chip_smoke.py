@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--access-scan-was PATH]
+    python3 chip_smoke.py [--access-scan-was PATH] [--engine-only]
 
 Run from the root of a checkout (it puts `src` on sys.path itself). With
 --access-scan-was, phase 3 also builds an earlier `access_scan.cu` (its C
 entry without the scratch argument) and checks and times it beside the
-kernel. In order:
+kernel. --engine-only runs phases 1, 2 and 10 alone and prints no result
+line. In order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port (`src/repro_torch/kernels/
@@ -120,7 +121,31 @@ kernel. In order:
      kernel path's expert choices pinned to the plain path's, which is
      gated (in the serve window within 5e-2 plus the rounding floor, the
      distance of a plain path with float64 attention from the plain path,
-     with whether it holds 5e-2 reported; phase 6's rule in the prefill).
+     with whether it holds 5e-2 reported; phase 6's rule in the prefill);
+ 10. the object engine: `make_config(699050, 256, sb_slots=64,
+     page_slots=4, slack=1.5)`, 2^20 slots of 1 KiB (the most a table
+     word's 20-bit slot field addresses), `EngineOptions(collect_every=20,
+     backend=proactive, move_budget=16384)`. access_scan and migrate are
+     first held exactly against their plain versions at the engine's
+     shapes and timed. (a) every object allocated through `Engine.step`
+     with payloads from a seeded generator, then the load phase's reset;
+     (b) 64 windows of YCSB-B (19 read steps and 1 write step of 4096
+     scrambled-Zipf keys over the first third of the ranks) through
+     `make_trace` and `Engine.run_window` in graph mode: every window after
+     the first one replay of one graph, access_scan and migrate launched
+     once a window (counted through the replays), no synchronising CUDA
+     operation inside a window, rows moved both ways; (c) the same windows
+     op by op through `Hades` from a clone of the loaded pool: state, read
+     outputs and reports identical to (b)'s, Page Utilization before
+     listed windows' closing op; (d) the first 8 windows with both kernels
+     patched to their plain versions: the state identical to (b)'s; every
+     object read back against a numpy mirror of its last payload; (e) ms a
+     window and ops/s in both modes, moves per window, the heap histogram,
+     RSS / host bytes, and from 4 profiled windows of (b) the device's
+     busy and idle share, kernels a window and each kernel's device time a
+     launch against its bound; (f) `SimHeap` over the same objects and the
+     first 16 windows' keys with its backend on the card and on the CPU:
+     identical window logs and page arrays.
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
 is not run from a checkout, or if any phase fails. The last lines of its
@@ -151,7 +176,7 @@ PREFILL_B, PREFILL_S = 2, 4096   # cut from prefill_32k (B=32, S=32768)
 DECODE_B, DECODE_PROMPT, DECODE_NEW = 8, 32, 32   # falcon-mamba decode
 DRIFT_S = 64       # tokens of the prefill-vs-decode comparisons
 TRACE_FROM = 6     # first of the two traced serve windows; lanes are full
-PROFILES = 3       # profiled prefills taken at most (`measure_prefill`)
+PROFILES = 3       # traces taken at most when one comes back short (`measure_prefill`, `device_ops`)
 # the widest k-th to (k+1)-th gate gap at which the two paths' bf16 rounding
 # may flip a top-k choice whose router input differs by rounding only: the
 # flips measured on an H100 at olmoe's and mixtral's full width lay at gaps
@@ -281,7 +306,10 @@ def device_ops(fn, iters: int, between=None):
     summed durations of every kernel, memset and copy in a torch.profiler
     trace of `iters` calls after one warm-up call, each call after
     between() when given; between()'s own device operations (named from a
-    trace of it alone) are left out."""
+    trace of it alone) are left out. A trace with no device record at all
+    is taken again, up to PROFILES traces (on the H100 one of the many
+    traces of a run once came back empty: torch.profiler's record loss of
+    §7 of PERF.md); it fails if every one is empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cuda_t = torch.autograd.DeviceType.CUDA
@@ -304,8 +332,13 @@ def device_ops(fn, iters: int, between=None):
         if between is not None:
             between()
         fn()
-    dev = [e for e in trace(step, iters) if e.name not in skip]
-    if not dev:
+    for attempt in range(1, PROFILES + 1):
+        dev = [e for e in trace(step, iters) if e.name not in skip]
+        if dev:
+            break
+        log(f"device_ops: trace {attempt} of at most {PROFILES} recorded no "
+            "device activity")
+    else:
         raise AssertionError("the profiler recorded no device activity")
     return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters,
             len(dev) / iters, sorted({e.name[:60] for e in dev}))
@@ -2006,6 +2039,499 @@ def moe_path(dev):
                     "flash_attention"])
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the object engine on a 2^20-slot YCSB-B pool
+# ---------------------------------------------------------------------------
+# make_config(699050, 256, sb_slots=64, page_slots=4, slack=1.5): 2^20 slots
+# of 1 KiB (a YCSB record of 10 fields x 100 B), 4 KiB pages, 64 KiB
+# superblocks; the most slots a table word's 20-bit slot field addresses
+ENGINE_POOL = dict(max_objects=699050, slot_words=256, sb_slots=64,
+                   page_slots=4, slack=1.5)
+YCSB_K, YCSB_EVERY, YCSB_WINDOWS = 4096, 20, 64   # keys a step, steps a window
+ENGINE_BUDGET = 16384          # collector moves per direction per window
+LOAD_CHUNK = 65536             # ids per alloc step of the load
+PLAIN_WINDOWS = 8              # (d): windows on the plain path
+PROFILED = range(56, 60)       # (e): the profiled stretch of (b)
+PU_WINDOWS = (0, 8, 16, 24, 32, 40, 48, 56, 63)
+SIM_WINDOWS = 16               # (f)
+
+
+def ycsb_windows(n_keys, n_windows, w):
+    """YCSB-B on scrambled Zipf keys (theta 0.99) over the first third of
+    the ranks (`ZipfianKeys(n_keys, seed=0, active_frac=1/3)`, sampled in
+    order): each window 19 read steps and 1 write step (95 % / 5 %) of
+    YCSB_K keys. A write step's payload has one row per distinct key
+    (numpy seed 1), so a key written twice in a step gets the same bytes
+    (which of two writes to one slot lands is not defined on the card)."""
+    from repro_torch.data.ycsb import WORKLOADS, ZipfianKeys
+    mix = WORKLOADS["B"]
+    assert mix.update_frac * YCSB_EVERY == 1
+    keys = ZipfianKeys(n_keys, seed=0, active_frac=1 / 3)
+    rng = np.random.default_rng(1)
+    out = []
+    for _ in range(n_windows):
+        steps = []
+        for s in range(YCSB_EVERY):
+            ks = keys.sample(YCSB_K)
+            if s < YCSB_EVERY - 1:
+                steps.append(("read", ks, None))
+                continue
+            uniq, inv = np.unique(ks, return_inverse=True)
+            rows = rng.standard_normal((len(uniq), w), dtype=np.float32)
+            steps.append(("write", ks, rows[inv]))
+        out.append(steps)
+    return out
+
+
+def _clone(state):
+    import torch
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(torch.clone, state)
+
+
+def _states_equal(a, b) -> list:
+    """The leaves of two pool states that differ (every leaf compared)."""
+    import torch
+    fa, fb = _flat(a), _flat(b)
+    if sorted(fa) != sorted(fb):
+        return ["<structure>"]
+    return [k for k in fa if not torch.equal(fa[k], fb[k])]
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Counts the synchronising CUDA operations inside the block (sync
+    debug mode "warn")."""
+    import torch
+    n = [0]
+
+    def on_warning(message, *args, **kwargs):
+        if "synchronizing CUDA operation" in str(message):
+            n[0] += 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield n
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def engine_options():
+    from repro_torch.core import backend as be
+    from repro_torch.core.collector import CollectorConfig
+    from repro_torch.core.engine import EngineOptions
+    return EngineOptions(collect_every=YCSB_EVERY,
+                         backend=be.make("proactive"),
+                         collector=CollectorConfig(move_budget=ENGINE_BUDGET))
+
+
+def engine_load(eng, dev):
+    """(a) every id allocated with payloads from a seeded generator on the
+    card, LOAD_CHUNK ids an `Engine.step("alloc")`, no collect; then the
+    load phase's reset. Returns (state, the payloads as a numpy mirror)."""
+    import torch
+    from repro_torch.core.frontend import clear_load_phase
+    n, w = eng.cfg.max_objects, eng.cfg.slot_words
+    g = torch.Generator(device=dev).manual_seed(0)
+    mirror = np.empty((n, w), np.float32)
+    state = eng.init()
+    for lo in range(0, n, LOAD_CHUNK):
+        hi = min(lo + LOAD_CHUNK, n)
+        vals = torch.randn((hi - lo, w), generator=g, device=dev)
+        state, _, _ = eng.step(state, "alloc", torch.arange(
+            lo, hi, dtype=torch.int32, device=dev), vals)
+        mirror[lo:hi] = vals.cpu().numpy()
+    return clear_load_phase(state), mirror
+
+
+def engine_graph_run(eng, state, windows, dev):
+    """(b) every window one `run_window` call on its `make_trace`, in graph
+    mode; the launch counts reset just before and read just after; CUDA's
+    sync debug mode on inside every call after the first; windows 1 to
+    PROFILED.start - 1 timed (wall, no sync between windows), PROFILED
+    traced. Returns (state, per-window read outputs and reports, the
+    state after PLAIN_WINDOWS windows, stats)."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import ops
+    pcfg = eng.cfg
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs, reps, syncs, snap = [], [], 0, None
+    prof, t = None, {}
+    for wi, steps in enumerate(windows):
+        if wi == 1:
+            torch.cuda.synchronize()
+            t["start"] = time.perf_counter()
+        if wi == PROFILED.start:
+            torch.cuda.synchronize()
+            t["stop"] = time.perf_counter()
+            prof = _engine_profile()
+        trace = E.make_trace(pcfg, steps, device=dev)
+        if wi == 0:
+            state, out, rep = eng.run_window(state, trace, 0)
+        else:
+            with count_syncs() as n:
+                state, out, rep = eng.run_window(state, trace,
+                                                 wi * YCSB_EVERY)
+            syncs += n[0]
+        outs.append(out)
+        reps.append(rep)
+        if wi == PLAIN_WINDOWS - 1:
+            snap = _clone(state)
+        if wi == PROFILED.stop - 1:
+            flush_device_records()
+            prof.stop()
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    timed = PROFILED.start - 1
+    wall = (t["stop"] - t["start"]) / timed
+    return state, outs, reps, snap, dict(
+        launches=launches, syncs_inside_windows=syncs,
+        replays=eng.replays, graphs=len(eng._run._g.graphs),
+        ms_per_window=wall * 1e3,
+        ops_per_s=YCSB_EVERY * YCSB_K / wall, prof=prof)
+
+
+def _engine_profile():
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    return prof
+
+
+def engine_trace_stats(prof, ms_per_window, moved):
+    """(e) from the profiled windows: device busy and idle share (against
+    the unprofiled wall per window), kernels per window, and access_scan's
+    and migrate's device time per launch against their bounds (migrate's
+    from the rows those windows moved)."""
+    import torch
+    cpu_t = torch.autograd.DeviceType.CPU
+    n_win = len(PROFILED)
+    dev = [e for e in prof.events() if e.device_type != cpu_t
+           and not getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in dev]) / 1e3 / n_win
+    n, n_sbs = ENGINE_POOL["max_objects"], 16384
+    scan_bound = bound(n * 10 + 4 * n_sbs + 8, 20 * n, "int32")[0]
+    per = {}
+    for kname in ("access_scan", "migrate"):
+        parts = HADES_KERNELS[kname]
+        us = sum(e.time_range.elapsed_us() for e in kernels
+                 if any(p in e.name for p in parts))
+        calls = sum(parts[0] in e.name for e in kernels)
+        per[kname] = dict(launches=calls,
+                          device_ms_per_launch=us / 1e3 / max(calls, 1))
+    per["access_scan"]["bound_ms"] = scan_bound
+    rows = sum(moved) / n_win
+    per["migrate"]["bound_ms"] = bound(
+        2 * rows * 1024 + 2 * ENGINE_BUDGET * 9, 0, "fp32")[0]
+    per["migrate"]["rows_per_launch"] = rows
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e3 / n_win
+    return dict(
+        windows=list(PROFILED), device_busy_ms_per_window=busy_ms,
+        device_busy_share=busy_ms / ms_per_window,
+        device_idle_share=1 - busy_ms / ms_per_window,
+        kernels_per_window=len(kernels) / n_win,
+        copies_memsets_per_window=(len(dev) - len(kernels)) / n_win,
+        kernels=per, top_ms_per_window=dict(by_name.most_common(8)))
+
+
+def engine_eager_run(pcfg, opts, state, windows, dev):
+    """(c) the same windows op by op through `Hades` (the per-op path: one
+    `Engine.step` an op, the collect fused into the closing op) from a
+    clone of the loaded state. Returns (Hades, read outputs, last report
+    per window, Page Utilization before the closing op of PU_WINDOWS,
+    ms per window)."""
+    import torch
+    from repro_torch.core import Hades
+    from repro_torch.core import engine as E
+    h = Hades(pcfg, opts, device=dev)
+    h.state = state
+    outs, reps, pu = [], [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wi, steps in enumerate(windows):
+        trace = E.make_trace(pcfg, steps, device=dev)
+        read = []
+        for i, (op, _, _) in enumerate(steps):
+            if i == YCSB_EVERY - 1 and wi in PU_WINDOWS:
+                pu[wi] = h.page_utilization()
+            if op == "read":
+                read.append(h.read(trace["ids"][i]))
+            else:
+                h.write(trace["ids"][i], trace["values"][i])
+        outs.append(read)
+        reps.append(h.last_report)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(windows) * 1e3
+    return h, outs, reps, pu, ms
+
+
+def engine_plain_run(pcfg, opts, state, windows, dev):
+    """(d) the first PLAIN_WINDOWS windows through `Engine.run_window` op by
+    op with access_scan and migrate patched to their plain versions."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import ops, ref
+    eng = E.Engine(pcfg, opts, device=dev)
+    eng._run.eager = True
+    ops.reset_launches()
+    with mock.patch.multiple(ops, access_scan=ref.access_scan,
+                             migrate=ref.migrate):
+        for wi, steps in enumerate(windows[:PLAIN_WINDOWS]):
+            state, _, _ = eng.run_window(
+                state, E.make_trace(pcfg, steps, device=dev),
+                wi * YCSB_EVERY)
+    torch.cuda.synchronize()
+    return state, dict(ops.launches)
+
+
+def content_check(eng, state, mirror, dev):
+    """A read of every id returns the payload last written to it."""
+    import torch
+    n = eng.cfg.max_objects
+    bad = 0
+    for lo in range(0, n, LOAD_CHUNK):
+        hi = min(lo + LOAD_CHUNK, n)
+        state, got, _ = eng.step(state, "read", torch.arange(
+            lo, hi, dtype=torch.int32, device=dev))
+        bad += int((got.cpu().numpy() != mirror[lo:hi]).any(axis=1).sum())
+    return state, bad
+
+
+def sim_run(dev, windows):
+    """(f) SimHeap over the same objects (1 KiB each) and the first
+    SIM_WINDOWS windows of the key stream: every step's keys accessed,
+    then collect and the backend step (`reactive` under a target of 40 %
+    of the footprint, fig 7's)."""
+    from repro_torch.core.simheap import SimConfig, SimHeap
+    n = ENGINE_POOL["max_objects"]
+    cfg = SimConfig(max_objects=n, heap_bytes=1 << 30, backend="reactive",
+                    hbm_target_bytes=int(0.4 * n * 1024))
+    h = SimHeap(cfg, seed=0, device=dev)
+    h.alloc(np.arange(n), np.full(n, 1024))
+    t0 = time.perf_counter()
+    for steps in windows[:SIM_WINDOWS]:
+        for _, ks, _ in steps:
+            h.access_objects(ks)
+        h.collect()
+        h.backend_step()
+    return h, time.perf_counter() - t0
+
+
+def check_engine_kernels(dev, pcfg):
+    """access_scan and migrate at the engine's shapes, exactly against their
+    plain versions, and timed: the table of 699,050 words over 16,384
+    superblocks (no histogram); 2 x ENGINE_BUDGET moves of 1 KiB rows (a
+    tenth masked) over the [2^20 + 1, 256] fp32 pool."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator().manual_seed(10)
+    n = pcfg.max_objects
+    table = _random_table(g, n, pcfg.n_slots, dev)
+    ct = torch.tensor(3.0, device=dev)
+    kw = dict(sb_slots=pcfg.sb_slots, n_sbs=pcfg.n_sbs, with_hist=False)
+    if not all(map(torch.equal, ops.access_scan(table, ct, **kw),
+                   ref.access_scan(table, ct, **kw))):
+        raise AssertionError("access_scan differs at the engine's table")
+    scan = timings(lambda: ops.access_scan(table, ct, **kw), 200,
+                   lambda: ref.access_scan(table, ct, **kw), 50)
+    b_ms, b_by = bound(n * 10 + 4 * pcfg.n_sbs + 8, 20 * n, "int32")
+    scan.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+                shape=f"table [{n}] int32, n_sbs {pcfg.n_sbs}")
+    gd = torch.Generator(device=dev).manual_seed(10)
+    data = torch.randn((pcfg.n_slots + 1, pcfg.slot_words), generator=gd,
+                       device=dev)
+    data[-1] = 0
+    m = ENGINE_BUDGET
+    perm = torch.randperm(pcfg.n_slots, generator=g)[:3 * m]
+    src = torch.cat([perm[:m], perm[m:2 * m]]).to(dev, torch.int32)
+    dst = torch.cat([perm[2 * m:], perm[:m]]).to(dev, torch.int32)
+    ok = torch.rand(2 * m, generator=g).lt(0.9).to(dev)
+    got = ops.migrate(data.clone(), src, dst, ok)
+    want = ref.migrate(data.clone(), src, dst, ok)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or got[-1].any():
+        raise AssertionError("migrate differs at the engine's pool")
+    del got, want
+    mig = _migrate_timed(data, src, dst, ok, m)
+    mig.update(max_abs_err=0.0, shape=(
+        f"{mig['n_ok']} of {2 * m} moves of 1 KiB rows, pool "
+        f"[{pcfg.n_slots + 1}, {pcfg.slot_words}] fp32"))
+    del data
+    torch.cuda.empty_cache()
+    log(f"access_scan at the engine's table: exact; {_fmt(scan)}, bound "
+        f"{b_ms:.5f} ms")
+    log(f"migrate at the engine's pool: exact; {_fmt(mig)}, bound "
+        f"{mig['bound_ms']:.5f} ms for {mig['n_ok']} moves of 1 KiB")
+    return {"access_scan": scan, "migrate": mig}
+
+
+def engine_path(dev):
+    """Phase 10: the object engine on the 2^20-slot YCSB-B pool, steps (a)
+    to (f) (see the module docstring); raises if a gate fails."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.core import pool as pl
+    from repro_torch.core.frontend import heap_histogram
+    t = [time.perf_counter()]
+    pcfg = pl.make_config(**ENGINE_POOL)
+    if pcfg.n_slots != 1 << 20:
+        raise AssertionError(f"{pcfg.n_slots} slots, want 2^20")
+    kernels = check_engine_kernels(dev, pcfg)
+    opts = engine_options()
+    windows = ycsb_windows(pcfg.max_objects, YCSB_WINDOWS, pcfg.slot_words)
+    eng = E.Engine(pcfg, opts, device=dev)
+    state, mirror = engine_load(eng, dev)
+    for steps in windows:
+        for op, ks, vals in steps:
+            if op == "write":
+                mirror[ks] = vals
+    loaded = _clone(state)
+    hist0 = heap_histogram(state)
+    t.append(time.perf_counter())
+    log(f"engine: pool of {pcfg.n_slots} slots x {pcfg.slot_bytes} B "
+        f"({pcfg.n_sbs} superblocks), {pcfg.max_objects} objects loaded "
+        f"in {t[1] - t[0]:.1f} s (kernel checks included): {hist0}")
+
+    # (b) graph mode
+    state, outs_b, reps_b, snap, graph = engine_graph_run(eng, state,
+                                                          windows, dev)
+    host_b = [E.window_reports(r) for r in reps_b]
+    if any(len(r) != 1 for r in host_b):
+        raise AssertionError("a window did not close with one collect")
+    host_b = [r[0] for r in host_b]
+    moved = [(r["moved_to_hot"], r["moved_to_cold"]) for r in host_b]
+    launches = graph["launches"]
+    want = {k: (YCSB_WINDOWS if k in ("access_scan", "migrate") else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if graph["replays"] != YCSB_WINDOWS - 1 or graph["graphs"] != 1:
+        raise AssertionError(f"{graph['replays']} replays of "
+                             f"{graph['graphs']} graphs in {YCSB_WINDOWS} "
+                             "windows: want every window after the first "
+                             "one replay of one graph")
+    if graph["syncs_inside_windows"]:
+        raise AssertionError(f"{graph['syncs_inside_windows']} host syncs "
+                             "inside graph windows")
+    if not any(h for h, _ in moved) or not any(c for _, c in moved):
+        raise AssertionError(f"no collect moved rows both ways: {moved}")
+    prof = graph.pop("prof")
+    trace = engine_trace_stats(prof, graph["ms_per_window"],
+                               [h + c for h, c in moved[PROFILED.start:
+                                                        PROFILED.stop]])
+    del prof
+    if any(trace["kernels"][k]["launches"] != len(PROFILED)
+           for k in ("access_scan", "migrate")):
+        raise AssertionError(f"profiled windows: {trace['kernels']}")
+    t.append(time.perf_counter())
+
+    # (c) eager against graph
+    h, outs_c, reps_c, pu, eager_ms = engine_eager_run(
+        pcfg, opts, _clone(loaded), windows, dev)
+    bad = [k for k in _states_equal(state, h.state)]
+    for wi, (ob, oc) in enumerate(zip(outs_b, outs_c)):
+        for i, o in enumerate(oc):
+            if not torch.equal(ob[i], o):
+                bad.append(f"read output of window {wi} step {i}")
+    host_c = [{k: float(v) for k, v in r.items()} for r in reps_c]
+    if host_c != host_b:
+        bad.append("reports")
+    if bad:
+        raise AssertionError(f"eager differs from graph: {bad[:8]}")
+    del outs_b, outs_c
+    t.append(time.perf_counter())
+
+    # (d) kernel path (b) against the plain path
+    plain, plain_launches = engine_plain_run(pcfg, opts, loaded,
+                                             windows, dev)
+    bad = _states_equal(snap, plain)
+    if bad or plain_launches["access_scan"] or plain_launches["migrate"]:
+        raise AssertionError(f"plain path differs at {bad[:8]} (launches "
+                             f"{plain_launches})")
+    del plain, snap, loaded
+    t.append(time.perf_counter())
+
+    # content, gauges
+    final = {"heap_histogram": heap_histogram(state),
+             "rss_bytes": float(pl.rss_bytes(pcfg, state)),
+             "host_bytes": float(pl.host_bytes(pcfg, state)),
+             "total_moves": int(state["total_moves"]),
+             "total_faults": int(state["total_faults"]),
+             "ciw_threshold": float(state["ciw_threshold"])}
+    state, n_bad = content_check(eng, state, mirror, dev)
+    if n_bad:
+        raise AssertionError(f"{n_bad} of {pcfg.max_objects} objects do "
+                             "not read back their last payload")
+    del state, h, mirror
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+
+    # (f) SimHeap, backend on the card and on the CPU
+    sims = {d: sim_run(d, windows) for d in (dev, "cpu")}
+    (hg, sg), (hc, sc) = sims.values()
+    bad = [k for k in ("addr", "heap", "resident", "evict", "referenced")
+           if not np.array_equal(getattr(hg, k), getattr(hc, k))]
+    if bad or hg.window_log != hc.window_log:
+        raise AssertionError(f"SimHeap on the card differs from the CPU at "
+                             f"{bad or 'window_log'}")
+    t.append(time.perf_counter())
+
+    ops_s = YCSB_EVERY * YCSB_K / (eager_ms / 1e3)
+    log(f"engine (b) graph: {graph['ms_per_window']:.3f} ms a window "
+        f"({graph['ops_per_s']:.0f} ops/s, windows 1-{PROFILED.start - 1}, "
+        f"trace building included), {graph['replays']} replays of "
+        f"{graph['graphs']} graph, launches access_scan/migrate "
+        f"{YCSB_WINDOWS}/{YCSB_WINDOWS}, {graph['syncs_inside_windows']} "
+        f"syncs inside windows; (c) eager (Hades, op by op) "
+        f"{eager_ms:.3f} ms a window ({ops_s:.0f} ops/s); identical state, "
+        f"reads and reports; (d) plain path identical after "
+        f"{PLAIN_WINDOWS} windows")
+    log(f"engine moved (to hot, to cold) per window: "
+        f"{[(int(a), int(b)) for a, b in moved]}")
+    log(f"engine Page Utilization before each listed window's closing "
+        f"op: {pu}")
+    log(f"engine after {YCSB_WINDOWS} windows: {final}; content preserved "
+        f"over all {pcfg.max_objects} objects after {final['total_moves']} "
+        f"migrations")
+    log(f"engine trace (windows {PROFILED.start}-{PROFILED.stop - 1}): "
+        f"device busy {trace['device_busy_ms_per_window']:.4f} ms a window, "
+        f"busy share {trace['device_busy_share']:.3f}, idle share "
+        f"{trace['device_idle_share']:.3f}, {trace['kernels_per_window']:.0f} "
+        f"kernels a window, {trace['copies_memsets_per_window']:.0f} copies "
+        f"and memsets")
+    for k, v in trace["kernels"].items():
+        log(f"  {k}: {v['launches']} launches, "
+            f"{v['device_ms_per_launch']:.5f} ms device a launch, bound "
+            f"{v['bound_ms']:.5f} ms")
+    for k, v in trace["top_ms_per_window"].items():
+        log(f"  {v:9.4f} ms a window  {k}")
+    log(f"engine SimHeap: {SIM_WINDOWS} windows, backend on the card "
+        f"{sg:.2f} s, on the CPU {sc:.2f} s, identical; last window "
+        f"{hg.window_log[-1]}")
+    log(f"phase 10: kernel checks and load {t[1] - t[0]:.1f} s, (b) "
+        f"{t[2] - t[1]:.1f} s, (c) {t[3] - t[2]:.1f} s, (d) "
+        f"{t[4] - t[3]:.1f} s, content {t[5] - t[4]:.1f} s, (f) "
+        f"{t[6] - t[5]:.1f} s")
+    return dict(kernels=kernels, graph=graph, trace=trace,
+                eager_ms_per_window=eager_ms, eager_ops_per_s=ops_s,
+                moved=[(int(a), int(b)) for a, b in moved],
+                page_utilization={str(k): v for k, v in pu.items()},
+                loaded_histogram=hist0, final=final,
+                simheap=dict(card_s=sg, cpu_s=sc,
+                             last_window=hg.window_log[-1]),
+                seconds=t[-1] - t[0])
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
@@ -2014,6 +2540,9 @@ def main(argv=None) -> int:
                     help="an earlier access_scan.cu (C entry without the "
                     "scratch argument) to check and time beside the "
                     "kernel in phase 3")
+    ap.add_argument("--engine-only", action="store_true",
+                    help="run phases 1, 2 and 10 only, and print no result "
+                    "line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2058,9 +2587,18 @@ def main(argv=None) -> int:
                 om.resolved_head_dim, okv.block_tokens, okv.max_blocks,
                 opcfg.n_slots + 1)
     from repro_torch.core.collector import CollectorConfig
+
     def stamp(phase):
         log(f"[{time.perf_counter() - t_start:.1f} s] phase {phase}")
 
+    if args.engine_only:
+        stamp(10)
+        engine = engine_path(dev)
+        log(json.dumps({k: engine[k] for k in ("kernels", "graph", "trace")},
+                       default=str))
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, 10 "
+            "only: no result line)")
+        return 0
     stamp(3)
     kernels = {
         "paged_attention": check_paged_attention(dev, mc, kv_cfg, pcfg,
@@ -2084,6 +2622,8 @@ def main(argv=None) -> int:
     mamba = mamba_full(dev)
     stamp(9)
     olmoe = moe_path(dev)
+    stamp(10)
+    engine = engine_path(dev)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
     main_launches["flash_attention"] = \
@@ -2126,6 +2666,18 @@ def main(argv=None) -> int:
         if kname == "access_scan":
             row.update(device_ops_per_call=k["cases"][
                 "kernel/serve/hist=False"]["device_ops"])
+        if kname in ("access_scan", "migrate"):
+            # at the object engine's shapes, which phase 10 runs
+            e = engine["kernels"][kname]
+            row["engine"] = {key: e[key] for key in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "plain_device_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")}
+            traced = engine["trace"]["kernels"][kname]
+            row["engine"].update(
+                launches=engine["graph"]["launches"][kname],
+                graph_device_ms_per_launch=traced["device_ms_per_launch"],
+                graph_bound_ms=traced["bound_ms"])
         rows.append(row)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -2135,7 +2687,7 @@ def main(argv=None) -> int:
         "library_calls": LIBRARY, "serve": serve_summary,
         "launches_per_step": {k: launches[k] / steps for k in HADES_KERNELS},
         "prefill": prefill_summary, "kernel_vs_plain": path,
-        "falcon_mamba": mamba, "olmoe": olmoe,
+        "falcon_mamba": mamba, "olmoe": olmoe, "engine": engine,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,5 +1,7 @@
-"""Convert the JAX package's parameter pytree into the port's parameters,
-so that both compute the same function in the tests.
+"""Convert the JAX package's parameter pytree into the port's parameters
+(`from_jax`), and a JAX pool state into the port's (`pool_from_jax`), so
+that both packages compute the same function, or continue the same run,
+in the tests.
 
 Input: the JAX params with every leaf already a numpy array (for example
 `jax.tree.map(np.asarray, params)`). JAX stacks the per-layer dicts on a
@@ -15,11 +17,11 @@ import torch
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")       # a contiguous copy; 0-d stays 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()) \
+        return torch.from_numpy(a.view(np.uint16)) \
             .view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _convert(tree, device):
@@ -46,3 +48,19 @@ def from_jax(params: dict, device="cpu") -> dict:
         return tree[i].contiguous()
     out["layers"] = [layer(stacked, i) for i in range(n)]
     return out
+
+
+def _leaf(a: np.ndarray, device) -> torch.Tensor:
+    """One pool leaf; uint32 words reinterpreted bit for bit as int32 (the
+    port's table dtype)."""
+    a = np.asarray(a)
+    return _tensor(a.view(np.int32) if a.dtype == np.uint32 else a, device)
+
+
+def pool_from_jax(state: dict, device="cpu") -> dict:
+    """A JAX pool state (numpy leaves, e.g. `jax.tree.map(np.asarray,
+    state)`) -> the port's pool state on `device`: the same keys, table
+    words as int32 with the same bits, and the backend's carried state
+    (`bstate`: {} or the mglru / promote arrays) leaf by leaf."""
+    return {k: pool_from_jax(v, device) if isinstance(v, dict)
+            else _leaf(v, device) for k, v in state.items()}

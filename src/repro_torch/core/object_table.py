@@ -41,6 +41,7 @@ ACCESS_MASK = 1
 ATC_MASK = (1 << ATC_BITS) - 1
 CIW_MASK = (1 << CIW_BITS) - 1
 
+MAX_SLOTS = 1 << SLOT_BITS          # slots a word can address
 CIW_SAT = (1 << CIW_BITS) - 1
 ATC_SAT = (1 << ATC_BITS) - 1
 
@@ -91,6 +92,11 @@ def with_ciw(w, ciw): return _with(w, ciw, CIW_MASK, CIW_SHIFT)
 
 
 FREE_WORD = FREE << HEAP_SHIFT      # heap=FREE, slot=0: 'no object'
+
+
+def free_word(device=None) -> torch.Tensor:
+    """A 0-d word denoting 'no object' (heap=FREE, slot=0)."""
+    return torch.tensor(FREE_WORD, dtype=torch.int32, device=device)
 
 
 def make_table(num_objects: int, device=None) -> torch.Tensor:

@@ -98,12 +98,21 @@ def make_config(max_objects: int, slot_words: int, *, sb_slots: int = 64,
                 hot_frac: float = 0.375, slack: float = 1.5,
                 dtype: str = "float32") -> PoolConfig:
     """Size a pool with `slack`x physical slots over max_objects, split into
-    NEW/HOT/COLD regions by fraction."""
+    NEW/HOT/COLD regions by fraction.
+
+    Raises ValueError when the pool would have more than `ot.MAX_SLOTS`
+    (2^20) slots: a table word keeps the slot in 20 bits, so the slots
+    above it cannot be addressed. The JAX package does not check this and
+    silently wraps such slots onto low ones."""
     n_slots = int(max_objects * slack)
     n_sbs = max(3, -(-n_slots // sb_slots))
     new_sbs = max(1, int(n_sbs * new_frac))
     hot_sbs = max(1, int(n_sbs * hot_frac))
     cold_sbs = max(1, n_sbs - new_sbs - hot_sbs)
+    total = (new_sbs + hot_sbs + cold_sbs) * sb_slots
+    if total > ot.MAX_SLOTS:
+        raise ValueError(f"{total} slots: a table word addresses at most "
+                         f"{ot.MAX_SLOTS}")
     word_bytes = torch_dtype(dtype).itemsize
     return PoolConfig(max_objects=max_objects, slot_words=slot_words,
                       sb_slots=sb_slots, page_slots=page_slots,
@@ -148,6 +157,11 @@ def init(cfg: PoolConfig, device=None) -> Dict:
 
 
 OP_READ, OP_WRITE, OP_ALLOC, OP_FREE = 0, 1, 2, 3
+
+
+def heap_of_slot(cfg: PoolConfig, slot: torch.Tensor) -> torch.Tensor:
+    """Region id a physical slot belongs to (static boundaries), int32."""
+    return fl.region_of_slot(cfg, slot)
 
 
 def apply_op(cfg: PoolConfig, state: Dict, op: int, obj_ids: torch.Tensor,
@@ -272,16 +286,34 @@ def apply_op(cfg: PoolConfig, state: Dict, op: int, obj_ids: torch.Tensor,
     return state, vals
 
 
+def _zero_values(cfg: PoolConfig, obj_ids: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((obj_ids.shape[0], cfg.slot_words),
+                       dtype=torch_dtype(cfg.dtype), device=obj_ids.device)
+
+
 def alloc(cfg, state, obj_ids, values) -> Dict:
     """Allocate `obj_ids` [k] with payloads `values` [k, W] (see apply_op)."""
     return apply_op(cfg, state, OP_ALLOC, obj_ids, values)[0]
 
 
+def read(cfg, state, obj_ids) -> Tuple[torch.Tensor, Dict]:
+    """Gather object payloads for `obj_ids` [k] (-1 entries return zeros).
+    Returns (vals [k, W], state): the JAX order, the reverse of
+    `apply_op`'s."""
+    state, vals = apply_op(cfg, state, OP_READ, obj_ids,
+                           _zero_values(cfg, obj_ids))
+    return vals, state
+
+
+def write(cfg, state, obj_ids, values) -> Dict:
+    """Scatter payloads to live objects (a store is also an access)."""
+    return apply_op(cfg, state, OP_WRITE, obj_ids, values)[0]
+
+
 def free(cfg, state, obj_ids) -> Dict:
     """Release objects: their slots return to their regions' rings."""
-    zeros = torch.zeros((obj_ids.shape[0], cfg.slot_words),
-                        dtype=torch_dtype(cfg.dtype), device=obj_ids.device)
-    return apply_op(cfg, state, OP_FREE, obj_ids, zeros)[0]
+    return apply_op(cfg, state, OP_FREE, obj_ids,
+                    _zero_values(cfg, obj_ids))[0]
 
 
 # ---------------------------------------------------------------------------

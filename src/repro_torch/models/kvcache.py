@@ -53,6 +53,9 @@ class KVCacheConfig:
     def slot_words(self) -> int:
         return 2 * self.block_tokens * self.num_kv_heads * self.head_dim
 
+    def obj_id(self, layer, seq, block):
+        return (layer * self.batch + seq) * self.max_blocks + block
+
     def pool_config(self) -> pl.PoolConfig:
         return pl.make_config(
             self.max_objects, self.slot_words, sb_slots=self.sb_slots,
@@ -76,6 +79,16 @@ def init(cfg: KVCacheConfig, backend: Optional[be.Backend] = None,
         "active": torch.full((cfg.batch,), bool(active), dtype=torch.bool,
                              device=device),
     }
+
+
+def append(cfg: KVCacheConfig, state: Dict, k: torch.Tensor,
+           v: torch.Tensor) -> Dict:
+    """k/v: [L, B, KV, D] (one new token per sequence): `append_layer` for
+    every layer, then the step's pos advance. Tokens past cfg.max_blocks
+    capacity are dropped."""
+    for li in range(cfg.num_layers):
+        state = append_layer(cfg, state, li, k[li], v[li])
+    return advance_pos(state)
 
 
 def append_layer(cfg: KVCacheConfig, state: Dict, layer: int,
@@ -208,6 +221,16 @@ def _record_touched(pcfg: pl.PoolConfig, pool: Dict,
         total_faults=pool["total_faults"] + n_faults)
 
 
+def collect(cfg: KVCacheConfig, state: Dict,
+            col_cfg: Optional[col.CollectorConfig] = None
+            ) -> Tuple[Dict, Dict]:
+    """One Object Collector pass over the KV pool (no backend)."""
+    pool, report = col.collect(cfg.pool_config(),
+                               col_cfg or col.CollectorConfig(),
+                               state["pool"])
+    return dict(state, pool=pool), report
+
+
 def collect_and_backend(cfg: KVCacheConfig, col_cfg: col.CollectorConfig,
                         backend: be.Backend, state: Dict
                         ) -> Tuple[Dict, Dict]:
@@ -219,3 +242,8 @@ def collect_and_backend(cfg: KVCacheConfig, col_cfg: col.CollectorConfig,
 
 def arm(state: Dict) -> Dict:
     return dict(state, pool=col.arm(state["pool"]))
+
+
+def kv_bytes(cfg: KVCacheConfig) -> int:
+    return cfg.max_objects * cfg.slot_words * \
+        pl.torch_dtype(cfg.dtype).itemsize

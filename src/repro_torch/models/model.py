@@ -11,20 +11,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-
-
-def resolve_device(device: Optional[str]) -> torch.device:
-    """The entry points' device rule: `cuda` unless the caller asks for
-    another device; asking for nothing without CUDA raises instead of
-    silently running on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the port "
-                "on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class Model:

@@ -16,7 +16,9 @@ has one window body (`_run`, over `core.engine.run_window`: the host knows
 the clock, so the arm and collect points are placed statically) and two
 programs over it (`_window_body`: "window", and "serve", which applies the
 lane events first). A window of whole collect periods from an aligned
-clock runs, on a CUDA device, as ONE CUDA graph replay:
+clock runs, on a CUDA device, as ONE CUDA graph replay (the capture, the
+static carry and the replay are `core/graphs.py`'s, which the object
+engine shares):
 
   * the static carry: once a graph exists, every leaf of `self.state`
     plus the last tokens and the per-lane sampling parameters live in
@@ -59,8 +61,9 @@ from torch.utils import _pytree as pytree
 from repro_torch.core import backend as be
 from repro_torch.core import collector as col
 from repro_torch.core import engine as eng
+from repro_torch.core import graphs
 from repro_torch.core import pool as pl
-from repro_torch.kernels import ops as kops
+from repro_torch.device import upload
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -121,16 +124,6 @@ class _Lane:
     reason: str = ""
 
 
-@dataclasses.dataclass
-class _Graph:
-    """One captured window program: the graph, its static input and
-    outputs, and the kernel launches one replay makes (`kops.add_counts`)."""
-    graph: object
-    x: torch.Tensor
-    outs: Dict
-    counts: Dict[str, Dict[str, int]]
-
-
 class Server:
     """Decode-only server for the dense and MoE attention decoders."""
 
@@ -152,10 +145,7 @@ class Server:
         self.serve_log: List[Dict] = []
         # True runs every window op by op on CUDA too (tests, chip_smoke)
         self._eager = False
-        self._graphs: Dict[tuple, _Graph] = {}
-        self._static: Optional[List[torch.Tensor]] = None
-        self._spec = None
-        self._side = self._mempool = None
+        self._g = graphs.WindowGraphs(self.device)
         self._gen = torch.Generator(device=self.device)
         self.reset()
 
@@ -299,95 +289,50 @@ class Server:
             return outs
         pkey = self._params_key(params)
         key = (name, tuple(x.shape), do_sample, pkey)
-        g = self._graphs.get(key)
+        g = self._g.graphs.get(key)
         if g is None:
             # graphs of earlier params would hold their pool memory for good
-            self._graphs = {k: v for k, v in self._graphs.items()
-                            if k[3] == pkey}
-            return self._first_window(key, body, x, do_sample)
+            self._g.graphs = {k: v for k, v in self._g.graphs.items()
+                              if k[3] == pkey}
+            carry, outs = self._g.first_window(
+                key, body, self._carry(), x, self._adopt,
+                self._gen if do_sample else None)
+            self._uncarry(carry)
+            return outs
         self._to_static()
-        g.x.copy_(x)
-        g.graph.replay()
-        kops.add_counts(g.counts)
+        outs = self._g.replay(g, x)
         self.replays += 1
         if name == "window":
-            return pytree.tree_map(torch.clone, g.outs)
-        return g.outs
-
-    def _first_window(self, key, body: Callable, x: torch.Tensor,
-                      do_sample: bool) -> Dict:
-        """A shape's first window runs for real on the capture stream (so
-        that per-stream state, such as access_scan's scratch, exists before
-        the capture), then the program is captured on that stream; a
-        capture runs nothing, so the window does not advance twice."""
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-            self._mempool = torch.cuda.graph_pool_handle()
-        cur = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            carry, outs = body(self._carry(), x)
-        cur.wait_stream(self._side)
-        self._uncarry(carry)
-        self._to_static()
-        static_x = x.clone()
-        graph = torch.cuda.CUDAGraph()
-        if do_sample:
-            graph.register_generator_state(self._gen)
-        snap = kops.count_snapshot()
-        try:
-            with torch.cuda.graph(graph, pool=self._mempool,
-                                  stream=self._side):
-                new, static_outs = body(self._carry(), static_x)
-                self._write_back(new)
-        finally:
-            counts = kops.counts_since(snap)
-        self._graphs[key] = _Graph(graph, static_x, static_outs, counts)
+            return pytree.tree_map(torch.clone, outs)
         return outs
 
+    @property
+    def _graphs(self) -> Dict[tuple, graphs.Graph]:
+        """The captured window programs, by (program, input shape,
+        sampling, params key)."""
+        return self._g.graphs
+
+    @staticmethod
+    def _adopt(carry: Dict) -> torch.Tensor:
+        """The leaf the static carry adopts: the pool's `data`."""
+        return carry["kv"]["pool"]["data"]
+
     def _to_static(self) -> None:
-        """Bind the carry to the static carry the graphs read and write.
-        The first time, the current leaves are cloned into it, except the
-        pool's `data`, which is adopted as it is (updated in place, never
-        copied); after that, each leaf rebound since (by `reset`, an eager
+        """Bind the carry to the static carry the graphs read and write
+        (`graphs.WindowGraphs.bind`): the first time, the current leaves
+        are cloned into it, except the pool's `data`, which is adopted as
+        it is; after that, each leaf rebound since (by `reset`, an eager
         window or `serve`'s hand-back) is copied into its buffer."""
-        leaves, spec = pytree.tree_flatten(self._carry())
-        if self._static is None:
-            data = self.state["pool"]["data"]
-            self._static = [t if t is data else t.clone() for t in leaves]
-            self._spec = spec
-        else:
-            if spec != self._spec:
-                raise RuntimeError("the serving carry changed its structure")
-            for buf, t in zip(self._static, leaves):
-                if t is not buf:
-                    buf.copy_(t)
-        self._uncarry(pytree.tree_unflatten(self._static, self._spec))
+        self._uncarry(self._g.bind(self._carry(), self._adopt))
 
     def _write_back(self, carry: Dict) -> None:
-        """The end of a captured body: copy each leaf the window replaced
-        into its static buffer. A new leaf that is a view of a static
-        buffer would be overwritten by an earlier copy: it raises."""
-        leaves, spec = pytree.tree_flatten(carry)
-        if spec != self._spec:
-            raise RuntimeError("the window changed the carry's structure")
-        owned = {b.untyped_storage().data_ptr() for b in self._static}
-        for buf, t in zip(self._static, leaves):
-            if t is buf:
-                continue
-            if t.untyped_storage().data_ptr() in owned:
-                raise RuntimeError("a window output aliases the static carry")
-            buf.copy_(t)
+        """The end of a captured body (`graphs.WindowGraphs.write_back`)."""
+        self._g.write_back(carry)
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """A host array on the server's device. On CUDA the copy goes
-        through pinned memory without blocking: a copy from pageable
-        memory would wait for the device, a sync the window cannot
-        afford."""
-        t = torch.from_numpy(np.ascontiguousarray(host))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """A host array on the server's device, without a sync
+        (`device.upload`)."""
+        return upload(host, self.device)
 
     def _tokens(self, tokens) -> torch.Tensor:
         if isinstance(tokens, torch.Tensor):
@@ -598,7 +543,7 @@ class Server:
         self._gen.manual_seed(0)
         self._temp = torch.zeros(b, dtype=torch.float32, device=self.device)
         self._topk = torch.zeros(b, dtype=_I32, device=self.device)
-        if self._static is not None:
+        if self._g.static is not None:
             # the graphs read the static carry: write the fresh state into it
             self._to_static()
         self._sample_in_scan = False

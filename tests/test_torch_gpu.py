@@ -912,3 +912,245 @@ def test_moe_graph_serve_matches_eager(cuda, dtype):
         for k in fg:
             assert torch.equal(fg[k], fe[k]), (call, k)
         assert g.replays > 0 and g.kv_rss_bytes() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the object engine on the card: one graph replay per aligned window
+# ---------------------------------------------------------------------------
+def _engine(pcfg, backend, every, overlap, dev, eager=False):
+    from repro_torch.core import backend as be
+    from repro_torch.core import engine as eng
+    p = (dict(hbm_high_bytes=2 * pcfg.sb_bytes, hbm_low_bytes=pcfg.sb_bytes)
+         if backend == "promote" else be.pressure_params(backend,
+                                                         2 * pcfg.sb_bytes))
+    e = eng.Engine(pcfg, eng.EngineOptions(
+        collect_every=every, backend=be.make(backend, **p),
+        overlap_collect=overlap), device=dev)
+    e._run.eager = eager
+    return e
+
+
+def _loaded(e, n, rng):
+    """A fresh pool with objects 0..n-1 allocated, and their payloads."""
+    vals = rng.normal(size=(n, e.cfg.slot_words)).astype(np.float32)
+    state, _, _ = e.step(e.init(), "alloc", np.arange(n), vals)
+    return state
+
+
+def _engine_windows(rng, n_objs, k, every, n_windows, w):
+    """Windows of `every` steps over ids < n_objs, two op patterns in turn
+    (so that each repeats): random reads and frees (ids repeat), writes and
+    allocs of distinct ids (the last of several writes to one slot is not
+    defined on the card)."""
+    kinds = ["read", "read", "write", "free", "alloc"]
+    patterns = [[kinds[i % 5] for i in rng.permutation(every) + j]
+                for j in range(2)]
+    steps = []
+    for i in range(n_windows):
+        for kind in patterns[i % 2]:
+            if kind in ("write", "alloc"):
+                steps.append((kind, rng.choice(n_objs, k, replace=False),
+                              rng.normal(size=(k, w)).astype(np.float32)))
+            else:
+                steps.append((kind, rng.integers(0, n_objs, k), None))
+    return steps
+
+
+def _engine_pair_run(pcfg, backend, every, overlap, steps, n_load, cuda,
+                     calls=2):
+    """The same loaded pool and windows through a graph engine and an
+    eager one on the card (the trace in `calls` aligned calls). Returns
+    the two (state, outs, reports, launch counts) and the graph engine."""
+    import torch.utils._pytree as pytree
+    from repro_torch.core import engine as eng
+    runs = []
+    for eager in (False, True):
+        e = _engine(pcfg, backend, every, overlap, cuda, eager)
+        state = _loaded(e, n_load, np.random.default_rng(1))
+        trace = eng.make_trace(pcfg, steps, device=cuda)
+        t = len(steps)
+        cut = (t // every // calls) * every
+        outs, reps = [], []
+        ptr = state["data"].untyped_storage().data_ptr()
+
+        def go(state=state):
+            for lo, hi in ((0, cut), (cut, t)):
+                chunk = {k: v[lo:hi] for k, v in trace.items()}
+                state, out, rep = e.run_window(state, chunk, lo)
+                outs.append(out)
+                reps.append(rep)
+            return state
+        state, counts = _counted(go)
+        assert state["data"].untyped_storage().data_ptr() == ptr
+        rep = {k: torch.cat([r[k] for r in reps]) for k in reps[0]}
+        runs.append((state, torch.cat(outs), rep, counts, e))
+    return runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("every", [1, 4])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_engine_graph_matches_eager(cuda, backend, every, overlap):
+    """`Engine.run_window` at test_engine.py's pool: each aligned window
+    after the first of its op pattern one graph replay, against the same
+    windows op by op: every leaf of the state, the read outputs, the
+    per-step reports and the kernel launches (counted through the replays)
+    identical; the pool's `data` never leaves its storage."""
+    from repro_torch.core import pool as pl
+    pcfg = pl.make_config(64, 8, sb_slots=8, page_slots=4, slack=2.0)
+    steps = _engine_windows(np.random.default_rng(every), 48, 6, every,
+                            16 // every, 8)
+    (sg, og, rg, cg, eg), (se, oe, re_, ce, ee) = _engine_pair_run(
+        pcfg, backend, every, overlap, steps, 48, cuda)
+    fg, fe = _flat(sg), _flat(se)
+    assert sorted(fg) == sorted(fe)
+    for k in fg:
+        assert torch.equal(fg[k], fe[k]), k
+    assert torch.equal(og, oe)
+    for k in rg:
+        assert torch.equal(rg[k], re_[k]), k
+    assert cg == ce and cg["launches"]["access_scan"] == 16 // every
+    assert cg["launches"]["migrate"] == 16 // every
+    assert eg.replays == 16 // every - len(eg._run._g.graphs) > 0
+    assert ee.replays == 0 and ee._run._g is None
+
+
+@pytest.mark.gpu
+def test_engine_unaligned_window_runs_op_by_op(cuda):
+    """A call from an unaligned clock, or of an unaligned length, captures
+    nothing and replays nothing; it equals the eager engine's."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core import pool as pl
+    pcfg = pl.make_config(64, 8, sb_slots=8, page_slots=4, slack=2.0)
+    steps = _engine_windows(np.random.default_rng(5), 48, 6, 4, 3, 8)
+    out = []
+    for eager in (False, True):
+        e = _engine(pcfg, "mglru", 4, True, cuda, eager)
+        state = _loaded(e, 48, np.random.default_rng(1))
+        trace = eng.make_trace(pcfg, steps, device=cuda)
+        state, o1, r1 = e.run_window(state, {k: v[:6] for k, v in
+                                             trace.items()}, 2)
+        state, o2, r2 = e.run_window(state, {k: v[6:] for k, v in
+                                             trace.items()}, 8)
+        assert e.replays == 0 and e._run._g is None
+        out.append((state, o1, o2, eng.window_reports(r1),
+                    eng.window_reports(r2)))
+    (sa, *rest_a), (sb, *rest_b) = out
+    assert all(torch.equal(a, b) for a, b in zip(rest_a[:2], rest_b[:2]))
+    assert rest_a[2:] == rest_b[2:]
+    fa, fb = _flat(sa), _flat(sb)
+    assert all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+POOL_2_16 = (65536, 64)      # objects, words per slot (fp32)
+
+
+@pytest.mark.gpu
+def test_engine_at_2_16_objects_graph_eager_cpu(cuda):
+    """A pool of 2^16 objects (98304 slots, 256 B rows), windows of 8
+    steps of 1024 ids: graph against eager on the card bit for bit, and
+    the card against the CPU (plain versions of both kernels)."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core import pool as pl
+    n, w = POOL_2_16
+    pcfg = pl.make_config(n, w, sb_slots=64, page_slots=4, slack=1.5)
+    steps = _engine_windows(np.random.default_rng(7), n, 1024, 8, 6, w)
+    (sg, og, rg, cg, eg), (se, oe, re_, ce, _) = _engine_pair_run(
+        pcfg, "proactive", 8, False, steps, n, cuda)
+    fg, fe = _flat(sg), _flat(se)
+    assert all(torch.equal(fg[k], fe[k]) for k in fg)
+    assert torch.equal(og, oe) and cg == ce and eg.replays == 4
+    assert all(torch.equal(rg[k], re_[k]) for k in rg)
+    moved = rg["moved_to_hot"].sum() + rg["moved_to_cold"].sum()
+    assert moved > 0
+    e = _engine(pcfg, "proactive", 8, False, "cpu")
+    state = _loaded(e, n, np.random.default_rng(1))
+    state, oc, rc = e.run_window(state, eng.make_trace(pcfg, steps,
+                                                      device="cpu"), 0)
+    fc = _flat(state)
+    assert all(torch.equal(fc[k], fg[k].cpu()) for k in fc)
+    assert torch.equal(oc, og.cpu())
+    assert all(torch.equal(rc[k], rg[k].cpu()) for k in rc)
+
+
+@pytest.mark.gpu
+def test_engine_kernel_path_matches_plain(cuda, monkeypatch):
+    """The graph engine (access_scan and migrate kernels) against the same
+    windows op by op with both kernels' plain versions patched in, at the
+    2^16-object pool: every leaf identical."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core import pool as pl
+    n, w = POOL_2_16
+    pcfg = pl.make_config(n, w, sb_slots=64, page_slots=4, slack=1.5)
+    steps = _engine_windows(np.random.default_rng(8), n, 1024, 8, 4, w)
+    states = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(tops, "access_scan", tref.access_scan)
+            monkeypatch.setattr(tops, "migrate", tref.migrate)
+        e = _engine(pcfg, "reactive", 8, True, cuda, eager=plain)
+        state = _loaded(e, n, np.random.default_rng(1))
+        tops.reset_launches()
+        state, _, _ = e.run_window(
+            state, eng.make_trace(pcfg, steps, device=cuda), 0)
+        torch.cuda.synchronize()
+        want = 0 if plain else 4
+        assert tops.launches["access_scan"] == tops.launches["migrate"] \
+            == want
+        states.append(_flat(state))
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_simheap_backend_on_card_matches_cpu(cuda, backend):
+    """SimHeap with its backend stepping on the card against the CPU: the
+    window logs and page arrays identical over a pressured run."""
+    from repro_torch.core.simheap import SimConfig, SimHeap
+    cfg = SimConfig(max_objects=2048, heap_bytes=1 << 23, backend=backend,
+                    hbm_target_bytes=1 << 18)
+    heaps = [SimHeap(cfg, seed=0, device=d) for d in (cuda, "cpu")]
+    for h in heaps:
+        rng = np.random.default_rng(0)
+        h.alloc(np.arange(2048), rng.integers(64, 2048, 2048))
+        for _ in range(10):
+            h.access_objects(rng.integers(0, 256, 512))
+            h.collect()
+            h.backend_step()
+    g, c = heaps
+    assert g.window_log == c.window_log
+    for k in ("addr", "heap", "resident", "evict", "referenced"):
+        assert np.array_equal(getattr(g, k), getattr(c, k)), k
+    if backend not in ("null", "proactive"):
+        assert (g.evict == 2).any()
+
+
+@pytest.mark.gpu
+def test_hades_on_card_matches_cpu(cuda):
+    """The quickstart's Hades run on the card and on the CPU: identical
+    reads, state, reports and metrics."""
+    from repro_torch.core import Hades, HadesOptions
+    from repro_torch.core import backend as be
+    from repro_torch.core import pool as pl
+    pcfg = pl.make_config(512, 32, sb_slots=16, page_slots=4, slack=2.0)
+    vals = np.arange(512 * 32, dtype=np.float32).reshape(512, 32)
+    res = []
+    for dev in (cuda, "cpu"):
+        h = Hades(pcfg, HadesOptions(collect_every=4,
+                                     backend=be.make("proactive")),
+                  device=dev)
+        h.alloc(np.arange(512), vals)
+        h.end_load_phase()
+        rng = np.random.default_rng(0)
+        hot = rng.permutation(512)[:48]
+        outs = [h.read(hot[rng.integers(0, 48, size=16)]).cpu()
+                for _ in range(96)]
+        back = h.read(np.arange(512)).cpu()
+        res.append((outs, back, _flat({k: v for k, v in h.state.items()}),
+                    h.heap_histogram(), h.counters(), h.rss_bytes()))
+    (og, bg, sg, *mg), (oc, bc, sc, *mc) = res
+    assert all(torch.equal(a, b) for a, b in zip(og, oc))
+    assert torch.equal(bg, bc) and torch.equal(bc, torch.from_numpy(vals))
+    assert all(torch.equal(sg[k].cpu(), sc[k]) for k in sc)
+    assert mg == mc and mc[1]["moves"] > 0

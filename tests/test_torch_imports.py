@@ -30,7 +30,11 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.configs.olmoe_1b_7b",
             "repro_torch.configs.mixtral_8x7b", "repro_torch.configs.glm4_9b",
             "repro_torch.configs.granite_20b",
-            "repro_torch.configs.granite_34b"} <= set(mods)
+            "repro_torch.configs.granite_34b", "repro_torch.core.engine",
+            "repro_torch.core.frontend", "repro_torch.core.page_util",
+            "repro_torch.core.simheap", "repro_torch.core.graphs",
+            "repro_torch.data.ycsb", "repro_torch.convert",
+            "repro_torch.device"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
