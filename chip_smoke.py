@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--access-scan-was PATH] [--engine-only]
+    python3 chip_smoke.py [--access-scan-was PATH] [--migrate-was PATH]
+                          [--engine-only]
 
 Run from the root of a checkout (it puts `src` on sys.path itself). With
 --access-scan-was, phase 3 also builds an earlier `access_scan.cu` (its C
 entry without the scratch argument) and checks and times it beside the
-kernel. --engine-only runs phases 1, 2 and 10 alone and prints no result
+kernel; --migrate-was does the same for an earlier `migrate.cu` (its C
+entry without the work and scratch arguments) in phases 3 and 10.
+--engine-only runs phases 1, 2 and 10 alone and prints no result
 line. In order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
@@ -16,7 +19,13 @@ line. In order:
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it and at the CPU tests' shapes (access_scan
      and migrate exactly, each also at olmoe-1b-7b's pool: its 16-layer
-     object table and its 128 KiB rows, at the collector's shape;
+     object table and its 128 KiB rows, at the collector's shape, migrate
+     on three lists there, "hazard" (cold movers land in the slots hot
+     movers vacate), "disjoint" (no destination is a source) and "swap"
+     (hot and cold movers trade slots), each
+     with the shares of its live moves that the kernel stages and copies
+     late (`ref.migrate_phased`), one device operation a call and one
+     cooperative kernel node when captured in a CUDA graph;
      paged_attention and flash_attention within 2e-2 in bf16 and 2e-5 in
      fp32, paged_attention's access bits exactly,
      mamba_scan bit for bit in fp32 and bf16 inputs; flash_attention at
@@ -126,9 +135,13 @@ line. In order:
      page_slots=4, slack=1.5)`, 2^20 slots of 1 KiB (the most a table
      word's 20-bit slot field addresses), `EngineOptions(collect_every=20,
      backend=proactive, move_budget=16384)`. access_scan and migrate are
-     first held exactly against their plain versions at the engine's
-     shapes and timed. (a) every object allocated through `Engine.step`
-     with payloads from a seeded generator, then the load phase's reset;
+     held exactly against their plain versions at the engine's shapes and
+     timed (migrate on the hazard, disjoint and swap lists, and on the
+     disjoint one no slower in device time than data[dst] = data[src]);
+     the full run does this at the end of phase 3, before the long phases
+     (the profiler lost records when it came later). (a) every object
+     allocated through `Engine.step` with payloads from a seeded
+     generator, then the load phase's reset;
      (b) 64 windows of YCSB-B (19 read steps and 1 write step of 4096
      scrambled-Zipf keys over the first third of the ranks) through
      `make_trace` and `Engine.run_window` in graph mode: every window after
@@ -186,7 +199,7 @@ ROUTING_TIE_GAP = 1e-3
 HADES_KERNELS = {"paged_attention": ("paged_attention_split",
                                      "paged_attention_combine_kernel"),
                  "access_scan": ("access_scan_kernel",),
-                 "migrate": ("gather_rows", "scatter_rows")}
+                 "migrate": ("migrate_kernel",)}
 TPU_KERNEL = {
     "paged_attention": "src/repro/kernels/paged_attention.py:74",
     "access_scan": "src/repro/kernels/access_scan.py:88",
@@ -235,9 +248,11 @@ def cuda_time(fn, iters: int, warmup: int = 3) -> float:
 
 def timings(fn, iters: int, plain, plain_iters: int, library=None) -> dict:
     """The kernel's, its plain version's and the library call's time per
-    call: CUDA events over back-to-back calls and profiler device time."""
-    out = dict(ms=cuda_time(fn, iters), device_ms=device_ops(fn, iters)[0],
-               plain_ms=cuda_time(plain, plain_iters),
+    call: CUDA events over back-to-back calls and profiler device time
+    (with the kernel's device operations per call in that trace)."""
+    device_ms, n_ops, _ = device_ops(fn, iters)
+    out = dict(ms=cuda_time(fn, iters), device_ms=device_ms,
+               device_ops=n_ops, plain_ms=cuda_time(plain, plain_iters),
                plain_device_ms=device_ops(plain, plain_iters)[0],
                library_ms=None, library_device_ms=None)
     if library is not None:
@@ -306,10 +321,12 @@ def device_ops(fn, iters: int, between=None):
     summed durations of every kernel, memset and copy in a torch.profiler
     trace of `iters` calls after one warm-up call, each call after
     between() when given; between()'s own device operations (named from a
-    trace of it alone) are left out. A trace with no device record at all
-    is taken again, up to PROFILES traces (on the H100 one of the many
-    traces of a run once came back empty: torch.profiler's record loss of
-    §7 of PERF.md); it fails if every one is empty."""
+    trace of it alone) are left out. A trace whose record count is not a
+    whole multiple of `iters` lost records (torch.profiler's record loss of
+    §7 of PERF.md: on the H100 a trace late in a run came back empty, and
+    one with half its kernels) and is taken again, up to PROFILES traces;
+    the fullest is kept (logged when none is whole), and it fails if every
+    one is empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     cuda_t = torch.autograd.DeviceType.CUDA
@@ -332,13 +349,15 @@ def device_ops(fn, iters: int, between=None):
         if between is not None:
             between()
         fn()
+    dev = []
     for attempt in range(1, PROFILES + 1):
-        dev = [e for e in trace(step, iters) if e.name not in skip]
-        if dev:
+        got = [e for e in trace(step, iters) if e.name not in skip]
+        dev = max(dev, got, key=len)
+        if got and len(got) % iters == 0:
             break
-        log(f"device_ops: trace {attempt} of at most {PROFILES} recorded no "
-            "device activity")
-    else:
+        log(f"device_ops: trace {attempt} of at most {PROFILES} recorded "
+            f"{len(got)} device operations in {iters} calls")
+    if not dev:
         raise AssertionError("the profiler recorded no device activity")
     return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / iters,
             len(dev) / iters, sorted({e.name[:60] for e in dev}))
@@ -487,89 +506,206 @@ def check_access_scan(dev, pcfg, olmoe_pcfg, was_source=None):
                 pool_bound_ms=pool_bound)
 
 
-def _migrate_case(g, gd, dev, pcfg, budget):
-    """Exact against the plain version on a pool [n_slots + 1, slot_words]
-    bf16 (the serve path's, scratch row last): the hot/cold overlap case,
-    then the collector's shape (2 * move_budget moves, hot then cold, all
-    live, a tenth masked). Returns that last case's inputs."""
+def _migrate_was(path):
+    """ops.migrate(...) of an earlier migrate.cu (its C entry: data,
+    staging, src, dst, ok, n_moves, n_rows, row_bytes, stream: a gather
+    launch and a scatter launch), built from `path` with the port's nvcc
+    flags into build/; for comparing in one run. Counts no launch."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build, ops
+    out = ROOT / "build" / "was" / "migrate.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                    str(path)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.migrate.argtypes = (P,) * 5 + (I, I, ctypes.c_longlong, P)
+    lib.migrate.restype = I
+
+    def call(data, src, dst, ok):
+        staging = torch.empty((src.shape[0], data.shape[1]), dtype=data.dtype,
+                              device=data.device)
+        rc = lib.migrate(data.data_ptr(), staging.data_ptr(), src.data_ptr(),
+                         dst.data_ptr(), ok.data_ptr(), src.shape[0],
+                         data.shape[0], data.shape[1] * data.element_size(),
+                         ops._stream())
+        if rc:
+            raise RuntimeError(f"the earlier migrate failed: {rc}")
+        return data
+    return call
+
+
+def _six_moves(dev):
+    """(src, dst, ok): hot moves, then cold moves landing in slots the hot
+    moves vacated, plus masked moves that point at live rows."""
+    import torch
+    return (torch.tensor([3, 5, 0, 7, 9, 4], dtype=torch.int32, device=dev),
+            torch.tensor([12, 13, 1, 3, 5, 2], dtype=torch.int32, device=dev),
+            torch.tensor([1, 1, 0, 1, 1, 0], dtype=torch.bool, device=dev))
+
+
+def _migrate_lists(g, n_slots, budget, dev):
+    """The collector's shape, 2 x `budget` moves (hot then cold, a tenth
+    masked) over distinct slots, as three lists with one mask: "hazard", in
+    which the cold movers land in the slots the hot movers vacate (the
+    cold moves copy late), "disjoint", in which no destination is a source
+    (the collector's usual pattern: sources are live slots, destinations
+    free ones), and "swap", in which hot and cold mover i trade slots
+    (every live move whose partner is live is staged)."""
+    import torch
+    perm = torch.randperm(n_slots, generator=g)[:4 * budget]
+    ok = torch.rand(2 * budget, generator=g).lt(0.9).to(dev)
+    hot, cold = perm[:budget], perm[budget:2 * budget]
+    lists = (("hazard", torch.cat([hot, cold]),
+              torch.cat([perm[2 * budget:3 * budget], hot])),
+             ("disjoint", perm[:2 * budget], perm[2 * budget:]),
+             ("swap", torch.cat([hot, cold]), torch.cat([cold, hot])))
+    return {name: (s.to(dev, torch.int32), d.to(dev, torch.int32), ok)
+            for name, s, d in lists}
+
+
+def _migrate_exact(data, src, dst, ok, where, was=None):
+    """Kernel (and the earlier kernel `was`) against the plain version and
+    the three-phase model, exactly, scratch row zero. Returns the shares of
+    the live moves that the kernel stages and that it copies late (in
+    phase 3, straight across)."""
     import torch
     from repro_torch.kernels import ops, ref
-    n_rows, w = pcfg.n_slots + 1, pcfg.slot_words
-    data = torch.randn((n_rows, w), generator=gd, device=dev,
-                       dtype=torch.bfloat16)
-    data[-1] = 0
-    # hot moves, then cold moves landing in slots hot moves vacated, plus
-    # masked moves that point at live rows
-    src = torch.tensor([3, 5, 0, 7, 9, 4], dtype=torch.int32, device=dev)
-    dst = torch.tensor([12, 13, 1, 3, 5, 2], dtype=torch.int32, device=dev)
-    ok = torch.tensor([1, 1, 0, 1, 1, 0], dtype=torch.bool, device=dev)
-    got = ops.migrate(data.clone(), src, dst, ok)
     want = ref.migrate(data.clone(), src, dst, ok)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want) or got[-1].any():
-        raise AssertionError(f"migrate differs at [{n_rows}, {w}]")
-    perm = torch.randperm(pcfg.n_slots, generator=g)[:3 * budget]
-    src = torch.cat([perm[:budget], perm[budget:2 * budget]]).to(
-        dev, torch.int32)
-    dst = torch.cat([perm[2 * budget:], perm[:budget]]).to(dev, torch.int32)
-    ok = torch.rand(2 * budget, generator=g).lt(0.9).to(dev)
-    got = ops.migrate(data.clone(), src, dst, ok)
-    want = ref.migrate(data.clone(), src, dst, ok)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want) or got[-1].any():
-        raise AssertionError(f"migrate differs at the collector's shape "
-                             f"[{n_rows}, {w}]")
-    del got, want
-    return data, src, dst, ok
+    phased, staged = ref.migrate_phased(data.clone(), src, dst, ok)
+    impls = {"kernel": ops.migrate, **({"was": was} if was else {})}
+    for name, fn in impls.items():
+        got = fn(data.clone(), src, dst, ok)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(phased, want)) \
+                or got[-1].any():
+            raise AssertionError(f"migrate ({name}) differs at {where}")
+    del got, want, phased
+    live = ok & (dst >= 0) & (dst < data.shape[0])
+    read = live & torch.isin(dst, src.clamp(0, data.shape[0] - 1)[live])
+    n = max(int(live.sum()), 1)
+    return dict(staged_share=int(staged.sum()) / n,
+                late_share=int((read & ~staged).sum()) / n)
 
 
-def _migrate_timed(data, src, dst, ok, budget):
+def _migrate_timed(data, src, dst, ok, was=None):
+    """Times of a call (`timings`, library data[dst] = data[src]; device
+    operations a call from its kernel trace), the bound over the live
+    moves (2 x row bytes each, 9 bytes a lane) and, with `was`, the
+    earlier kernel's device time in the same run."""
     from repro_torch.kernels import ops, ref
     sel_s, sel_d = src[ok].long(), dst[ok].long()
 
     def library():
         data[sel_d] = data[sel_s]
-    t = timings(lambda: ops.migrate(data, src, dst, ok), 100,
-                lambda: ref.migrate(data, src, dst, ok), 20, library)
+    call = (lambda: ops.migrate(data, src, dst, ok))
+    t = timings(call, 100, lambda: ref.migrate(data, src, dst, ok), 20,
+                library)
+    if was:
+        t["was_device_ms"] = device_ops(lambda: was(data, src, dst, ok),
+                                        100)[0]
     n_ok = int(ok.sum())
     row_bytes = data.shape[1] * data.element_size()
-    b_ms, b_by = bound(2 * n_ok * row_bytes + 2 * budget * 9, 0, "bf16")
+    b_ms, b_by = bound(2 * n_ok * row_bytes + 9 * src.shape[0], 0, "bf16")
     return dict(t, bound_ms=b_ms, bound_by=b_by, n_ok=n_ok,
                 row_bytes=row_bytes)
 
 
-def check_migrate(dev, pcfg, budget, olmoe_pcfg):
-    """Exact against the plain version at chatglm3-6b's pool (16 KiB rows)
-    and olmoe-1b-7b's (128 KiB rows), each at the collector's shape, and
-    on a small fp32 table; timed at both pools."""
+def _migrate_pool_cases(g, gd, dev, n_slots, w, dtype, budget, label,
+                        was=None, one_op=False):
+    """Phase 3's migrate at one pool [n_slots + 1, w] (scratch row last):
+    six moves with the hot/cold overlap exact, and the hazard, disjoint and
+    swap lists exact and timed. With `one_op`, a profiled call on the
+    hazard list must be one device operation, the kernel (no memset).
+    Returns {case: numbers}, with the staged and late shares."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
+    data = torch.randn((n_slots + 1, w), generator=gd, device=dev,
+                       dtype=dtype)
+    data[-1] = 0
+    _migrate_exact(data, *_six_moves(dev), f"{label}'s pool, six moves", was)
+    res = {}
+    for case, (src, dst, ok) in _migrate_lists(g, n_slots, budget,
+                                               dev).items():
+        shares = _migrate_exact(data, src, dst, ok,
+                                f"{label}'s pool, {case}", was)
+        r = res[case] = _migrate_timed(data, src, dst, ok, was)
+        if one_op and case == "hazard":
+            # operations counted in a short trace (a long one may drop
+            # events)
+            _, n_ops, names = device_ops(
+                lambda: ops.migrate(data, src, dst, ok), 10)
+            if n_ops != 1 or any("Memset" in x for x in names):
+                raise AssertionError(f"migrate is {n_ops} device operations"
+                                     f" a call ({names}), not one kernel")
+        r.update(shares, max_abs_err=0.0, shape=(
+            f"{case}: {r['n_ok']} of {2 * budget} moves of "
+            f"{r['row_bytes']} B rows, pool [{n_slots + 1}, {w}] "
+            f"{str(dtype).split('.')[-1]}"))
+        log(f"migrate at {label}'s pool, {case} (staged share "
+            f"{r['staged_share']:.4f}, late {r['late_share']:.4f}): exact; "
+            f"{_fmt(r)} (library: data[dst]=data[src]),"
+            f" {r['device_ops']:g} device operations a call, bound "
+            f"{r['bound_ms']:.5f} ms"
+            + (f"; the earlier kernel {r['was_device_ms']:.5f} ms device"
+               if was else ""))
+    del data
+    torch.cuda.empty_cache()
+    return res
+
+
+def _migrate_graph_node(dev, n_slots, w, budget):
+    """One call captured in a CUDA graph (on a stream that called it
+    before) must be one kernel node, with the cooperative attribute, and
+    no other node."""
+    import torch
+    from repro_torch.kernels import ops
+    data = torch.zeros((n_slots + 1, w), device=dev, dtype=torch.bfloat16)
+    src, dst, ok = _migrate_lists(torch.Generator().manual_seed(3), n_slots,
+                                  budget, dev)["hazard"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.migrate(data, src, dst, ok)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    snap = ops.count_snapshot()
+    with torch.cuda.graph(graph, stream=side):
+        ops.migrate(data, src, dst, ok)
+    ops.counts_since(snap)
+    nodes = ops.graph_nodes(graph)
+    if nodes != dict(nodes=1, kernels=1, cooperative=1):
+        raise AssertionError(f"a captured migrate holds {nodes}, not one "
+                             "cooperative kernel node")
+    return nodes
+
+
+def check_migrate(dev, pcfg, budget, olmoe_pcfg, was=None):
+    """Exact against the plain version and the three-phase model
+    (`ref.migrate_phased`) on a small fp32 table (the hot/cold overlap) and
+    at chatglm3-6b's pool (16 KiB rows) and olmoe-1b-7b's (128 KiB rows),
+    each on the hazard, disjoint and swap lists (`_migrate_lists`); timed
+    at both pools with each case's staged and late shares; a profiled call
+    one device operation at chatglm3-6b's hazard case; a captured call one
+    cooperative kernel node.
+    With `was` (an earlier migrate.cu, built by `_migrate_was`), that
+    kernel is checked and timed at the same cases in the same run."""
+    import torch
     g = torch.Generator().manual_seed(2)
     gd = torch.Generator(device=dev).manual_seed(2)
     data = torch.randn((17, 24), generator=g).to(dev)
     data[-1] = 0
-    src = torch.tensor([3, 5, 0, 7, 9, 4], dtype=torch.int32, device=dev)
-    dst = torch.tensor([12, 13, 1, 3, 5, 2], dtype=torch.int32, device=dev)
-    ok = torch.tensor([1, 1, 0, 1, 1, 0], dtype=torch.bool, device=dev)
-    got = ops.migrate(data.clone(), src, dst, ok)
-    torch.cuda.synchronize()
-    if not torch.equal(got, ref.migrate(data.clone(), src, dst, ok)):
-        raise AssertionError("migrate differs at [17, 24] fp32")
-    res = {}
-    for name, pc in (("chatglm3-6b", pcfg), ("olmoe-1b-7b", olmoe_pcfg)):
-        case = _migrate_case(g, gd, dev, pc, budget)
-        res[name] = r = _migrate_timed(*case, budget)
-        r["shape"] = (f"{r['n_ok']} moves of {r['row_bytes']} B rows, pool "
-                      f"[{pc.n_slots + 1}, {pc.slot_words}] bf16")
-        log(f"migrate at {name}'s pool: exact (hot/cold overlap, the "
-            f"collector's shape, scratch row zero); {_fmt(r)} (library: "
-            f"data[dst]=data[src]), bound {r['bound_ms']:.5f} ms for "
-            f"{r['n_ok']} of {2 * budget} moves of {r['row_bytes']} B")
-        del case
-    torch.cuda.empty_cache()
-    o = res["olmoe-1b-7b"]
-    return dict(res["chatglm3-6b"], max_abs_err=0.0,
-                olmoe=dict(o, max_abs_err=0.0))
+    _migrate_exact(data, *_six_moves(dev), "[17, 24] fp32", was)
+    nodes = _migrate_graph_node(dev, pcfg.n_slots, pcfg.slot_words, budget)
+    log(f"migrate captured in a CUDA graph: {nodes}")
+    res = {name: _migrate_pool_cases(g, gd, dev, pc.n_slots, pc.slot_words,
+                                     torch.bfloat16, budget, name, was,
+                                     one_op=name == "chatglm3-6b")
+           for name, pc in (("chatglm3-6b", pcfg),
+                            ("olmoe-1b-7b", olmoe_pcfg))}
+    return dict(res["chatglm3-6b"]["hazard"], graph_nodes=nodes,
+                cases=res, olmoe=res["olmoe-1b-7b"]["hazard"])
 
 
 def _pa_inputs(g, dev, dtype, b, h, kv, d, bt, mb, n_slots, kind="random"):
@@ -2327,11 +2463,17 @@ def sim_run(dev, windows):
     return h, time.perf_counter() - t0
 
 
-def check_engine_kernels(dev, pcfg):
+def check_engine_kernels(dev, pcfg, migrate_was=None):
     """access_scan and migrate at the engine's shapes, exactly against their
     plain versions, and timed: the table of 699,050 words over 16,384
     superblocks (no histogram); 2 x ENGINE_BUDGET moves of 1 KiB rows (a
-    tenth masked) over the [2^20 + 1, 256] fp32 pool."""
+    tenth masked) over the [2^20 + 1, 256] fp32 pool, on the hazard,
+    disjoint and swap lists (`_migrate_lists`). migrate must take no more
+    device time than data[dst] = data[src] on the disjoint list. With
+    `migrate_was`
+    (built by `_migrate_was`) the earlier migrate kernel is held and timed
+    beside it. The full run takes it in phase 3, --engine-only in phase
+    10."""
     import torch
     from repro_torch.kernels import ops, ref
     g = torch.Generator().manual_seed(10)
@@ -2348,45 +2490,41 @@ def check_engine_kernels(dev, pcfg):
     scan.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
                 shape=f"table [{n}] int32, n_sbs {pcfg.n_sbs}")
     gd = torch.Generator(device=dev).manual_seed(10)
-    data = torch.randn((pcfg.n_slots + 1, pcfg.slot_words), generator=gd,
-                       device=dev)
-    data[-1] = 0
-    m = ENGINE_BUDGET
-    perm = torch.randperm(pcfg.n_slots, generator=g)[:3 * m]
-    src = torch.cat([perm[:m], perm[m:2 * m]]).to(dev, torch.int32)
-    dst = torch.cat([perm[2 * m:], perm[:m]]).to(dev, torch.int32)
-    ok = torch.rand(2 * m, generator=g).lt(0.9).to(dev)
-    got = ops.migrate(data.clone(), src, dst, ok)
-    want = ref.migrate(data.clone(), src, dst, ok)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want) or got[-1].any():
-        raise AssertionError("migrate differs at the engine's pool")
-    del got, want
-    mig = _migrate_timed(data, src, dst, ok, m)
-    mig.update(max_abs_err=0.0, shape=(
-        f"{mig['n_ok']} of {2 * m} moves of 1 KiB rows, pool "
-        f"[{pcfg.n_slots + 1}, {pcfg.slot_words}] fp32"))
-    del data
-    torch.cuda.empty_cache()
+    mig = _migrate_pool_cases(g, gd, dev, pcfg.n_slots, pcfg.slot_words,
+                              torch.float32, ENGINE_BUDGET, "the engine",
+                              migrate_was)
+    d = mig["disjoint"]
+    if d["device_ms"] > d["library_device_ms"]:
+        raise AssertionError(
+            f"migrate at the engine's disjoint case takes {d['device_ms']:.5f}"
+            f" ms device, more than data[dst] = data[src] "
+            f"({d['library_device_ms']:.5f})")
     log(f"access_scan at the engine's table: exact; {_fmt(scan)}, bound "
         f"{b_ms:.5f} ms")
-    log(f"migrate at the engine's pool: exact; {_fmt(mig)}, bound "
-        f"{mig['bound_ms']:.5f} ms for {mig['n_ok']} moves of 1 KiB")
-    return {"access_scan": scan, "migrate": mig}
+    return {"access_scan": scan,
+            "migrate": dict(mig["hazard"], disjoint=mig["disjoint"],
+                            swap=mig["swap"])}
 
 
-def engine_path(dev):
+def engine_pool_config():
+    from repro_torch.core import pool as pl
+    pcfg = pl.make_config(**ENGINE_POOL)
+    if pcfg.n_slots != 1 << 20:
+        raise AssertionError(f"{pcfg.n_slots} slots, want 2^20")
+    return pcfg
+
+
+def engine_path(dev, kernels):
     """Phase 10: the object engine on the 2^20-slot YCSB-B pool, steps (a)
-    to (f) (see the module docstring); raises if a gate fails."""
+    to (f) (see the module docstring); raises if a gate fails. `kernels`:
+    `check_engine_kernels`' result, which the full run takes in phase 3,
+    before the profiler has traced the long phases in between."""
     import torch
     from repro_torch.core import engine as E
     from repro_torch.core import pool as pl
     from repro_torch.core.frontend import heap_histogram
     t = [time.perf_counter()]
-    pcfg = pl.make_config(**ENGINE_POOL)
-    if pcfg.n_slots != 1 << 20:
-        raise AssertionError(f"{pcfg.n_slots} slots, want 2^20")
-    kernels = check_engine_kernels(dev, pcfg)
+    pcfg = engine_pool_config()
     opts = engine_options()
     windows = ycsb_windows(pcfg.max_objects, YCSB_WINDOWS, pcfg.slot_words)
     eng = E.Engine(pcfg, opts, device=dev)
@@ -2540,6 +2678,10 @@ def main(argv=None) -> int:
                     help="an earlier access_scan.cu (C entry without the "
                     "scratch argument) to check and time beside the "
                     "kernel in phase 3")
+    ap.add_argument("--migrate-was", metavar="PATH",
+                    help="an earlier migrate.cu (C entry without the work "
+                    "and scratch arguments) to check and time beside the "
+                    "kernel in phases 3 and 10")
     ap.add_argument("--engine-only", action="store_true",
                     help="run phases 1, 2 and 10 only, and print no result "
                     "line")
@@ -2591,9 +2733,12 @@ def main(argv=None) -> int:
     def stamp(phase):
         log(f"[{time.perf_counter() - t_start:.1f} s] phase {phase}")
 
+    migrate_was = _migrate_was(args.migrate_was) if args.migrate_was else None
+
     if args.engine_only:
         stamp(10)
-        engine = engine_path(dev)
+        engine = engine_path(dev, check_engine_kernels(
+            dev, engine_pool_config(), migrate_was))
         log(json.dumps({k: engine[k] for k in ("kernels", "graph", "trace")},
                        default=str))
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, 10 "
@@ -2606,10 +2751,12 @@ def main(argv=None) -> int:
         "access_scan": check_access_scan(dev, pcfg, opcfg,
                                          args.access_scan_was),
         "migrate": check_migrate(dev, pcfg, CollectorConfig().move_budget,
-                                 opcfg),
+                                 opcfg, migrate_was),
         "flash_attention": check_flash_attention(dev, mc, om),
         "mamba_scan": check_mamba_scan(dev, get_config("falcon-mamba-7b")),
     }
+    engine_kernels = check_engine_kernels(dev, engine_pool_config(),
+                                          migrate_was)
     stamp("4-5")
     launches, serve_summary, steps = serve_full(dev)
     stamp(6)
@@ -2623,7 +2770,7 @@ def main(argv=None) -> int:
     stamp(9)
     olmoe = moe_path(dev)
     stamp(10)
-    engine = engine_path(dev)
+    engine = engine_path(dev, engine_kernels)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
     main_launches["flash_attention"] = \
@@ -2663,6 +2810,21 @@ def main(argv=None) -> int:
                 "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
                 "bound_ms", "library_ms", "library_device_ms")}
             row["olmoe"]["launches"] = olmoe["launches"]["migrate"]
+            # every case of phases 3 and 10: the three lists at the three
+            # pools
+            e = engine["kernels"]["migrate"]
+            pools = dict(k["cases"], engine={
+                "hazard": e, "disjoint": e["disjoint"], "swap": e["swap"]})
+            row["cases"] = {f"{pool}/{case}": {key: c.get(key) for key in (
+                "shape", "staged_share", "late_share", "device_ops", "ms",
+                "device_ms",
+                "plain_ms", "bound_ms", "library_ms", "library_device_ms",
+                "was_device_ms")} for pool, cs in pools.items()
+                for case, c in cs.items()}
+            row.update(staged_share=k["staged_share"],
+                       late_share=k["late_share"],
+                       device_ops_per_call=k["device_ops"],
+                       graph_nodes=k["graph_nodes"])
         if kname == "access_scan":
             row.update(device_ops_per_call=k["cases"][
                 "kernel/serve/hist=False"]["device_ops"])

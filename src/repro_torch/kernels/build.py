@@ -32,7 +32,8 @@ _ARGTYPES = {
                         _I, _I, _I, _I, _I, ctypes.c_longlong, ctypes.c_float,
                         _I, _I, _I, _I, _I, _P),
     "access_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "migrate": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P),
+    "migrate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I,
+                _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I,
                         _I, _I, _P),

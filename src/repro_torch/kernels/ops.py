@@ -3,7 +3,7 @@
 Each wrapper takes the plain version in `ref.py` when its tensors lie on
 the CPU, and only then. For CUDA tensors it checks device, dtype, shape
 and contiguity, allocates outputs and scratch with `torch.empty`
-(access_scan keeps a zeroed scratch per stream instead), launches
+(access_scan and migrate also keep a zeroed scratch per stream), launches
 its kernel on the current stream (building it at first use, see
 `build.py`), raises if the launch reports an error, and adds one to its
 count in `launches`. Empty inputs return before the C entry point, which
@@ -112,12 +112,24 @@ def _n_sms(device: torch.device) -> int:
 # ---------------------------------------------------------------------------
 # migrate
 # ---------------------------------------------------------------------------
+# migrate's zeroed scratch [4 counters | is_src[n_rows] | is_dst[n_rows]]
+# bytes, one per (device, stream, n_rows); the kernel leaves it zero after
+# every call
+_mig_scratch: Dict[Tuple[int, int, int], torch.Tensor] = {}
+
+
 def migrate(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
             ok: torch.Tensor) -> torch.Tensor:
     """In place: data[dst[i]] = data[src[i]] for every ok[i], every source
     read before any destination is written. data: [n_rows, W], whose last
     row is the pool's scratch row (masked moves leave it untouched);
-    src/dst: [n] int32; ok: [n] bool. Returns data."""
+    src/dst: [n] int32; ok: [n] bool. Returns data. On CUDA a call is one
+    cooperative kernel launch and no other device operation: the staging
+    rows and the move lists are `torch.empty`, and the marks and counters
+    live in a scratch of the stream that the wrapper zeroes once, when the
+    stream first calls it, and the kernel leaves zero (`ref.
+    migrate_phased` models the kernel's three phases). A call captured in
+    a CUDA graph is one kernel node if its stream has called it before."""
     if _on_cpu(data, src, dst, ok):
         return ref.migrate(data, src, dst, ok)
     n = src.shape[0]
@@ -130,12 +142,36 @@ def migrate(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
            "src/dst/ok must be contiguous")
     if n == 0 or data.numel() == 0:
         return data
-    staging = torch.empty((n, data.shape[1]), dtype=data.dtype,
-                          device=data.device)
-    _launch("migrate", data.data_ptr(), staging.data_ptr(), src.data_ptr(),
-            dst.data_ptr(), ok.data_ptr(), n, data.shape[0],
-            data.shape[1] * data.element_size(), _stream())
+    dev, n_rows = data.device, data.shape[0]
+    staging = torch.empty((n, data.shape[1]), dtype=data.dtype, device=dev)
+    work = torch.empty(4 * n, dtype=torch.int32, device=dev)
+    stream = _stream()
+    key = (dev.index, stream, n_rows)
+    scratch = _mig_scratch.get(key)
+    if scratch is None:
+        scratch = _mig_scratch[key] = torch.zeros(16 + 2 * n_rows,
+                                                  dtype=torch.uint8,
+                                                  device=dev)
+    _launch("migrate", data.data_ptr(), staging.data_ptr(), work.data_ptr(),
+            scratch.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            ok.data_ptr(), n, n_rows, data.shape[1] * data.element_size(),
+            _n_sms(dev), stream)
     return data
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Dict[str, int]:
+    """What a graph captured with keep_graph=True holds: its nodes, its
+    kernel nodes, and the kernel nodes that carry the cooperative launch
+    attribute (read back from the graph, for tests and `chip_smoke.py`)."""
+    lib = build.lib("migrate")
+    lib.graph_nodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+    lib.graph_nodes.restype = ctypes.c_int
+    counts = (ctypes.c_int * 3)()
+    rc = lib.graph_nodes(graph.raw_cuda_graph(), counts)
+    if rc != 0:
+        raise RuntimeError(f"graph_nodes failed: "
+                           f"{lib.error_string(rc).decode()} (code {rc})")
+    return dict(zip(("nodes", "kernels", "cooperative"), counts))
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,38 @@ def migrate(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return data
 
 
+def migrate_phased(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                   ok: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`migrate` as the CUDA kernel orders it, in three phases. (1) The live
+    moves (ok, destination in range; source clamped) mark their sources
+    and destinations. (2) A move whose destination is no live source is
+    early: it copies straight across. A move whose destination is a live
+    source and whose source is a live destination is staged: its source
+    row is read into staging. (3) The staged rows are written to their
+    destinations, and the remaining (late) moves copy straight across.
+    Within each phase the writes land before the reads they could spoil,
+    the order in which a wrong split would show. In place; returns (data,
+    staged [n] bool). For the tests and `chip_smoke.py` only (the kernel's
+    model; boolean indexing syncs)."""
+    n_rows = data.shape[0]
+    live = ok & (dst >= 0) & (dst < n_rows)
+    s = src.clamp(0, n_rows - 1).long()
+    d = torch.where(live, dst, n_rows).long()      # n_rows: no row
+    is_src = torch.zeros(n_rows + 1, dtype=torch.bool, device=data.device)
+    is_dst = torch.zeros_like(is_src)
+    is_src[torch.where(live, s, n_rows)] = True
+    is_dst[d] = True
+    is_src[n_rows] = is_dst[n_rows] = False
+    read, written = is_src[d], is_dst[s]
+    early, staged = live & ~read, live & read & written
+    late = live & read & ~written
+    data[d[early]] = data[s[early]]                         # phase 2
+    staging = data[s[staged]]
+    data[d[staged]] = staging                               # phase 3
+    data[d[late]] = data[s[late]]
+    return data, staged
+
+
 def access_scan(table: torch.Tensor, ciw_threshold: torch.Tensor, *,
                 sb_slots: int, n_sbs: int, with_hist: bool = True
                 ) -> Tuple[torch.Tensor, ...]:

@@ -322,21 +322,162 @@ def test_access_scan_successive_n_sbs(cuda):
         _scan_check(table, ct, sb, nsb, with_hist=i % 3 != 1)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_rows,w,dtype", [(17, 24, torch.float32),
-                                            (10753, 8192, torch.bfloat16)])
-def test_migrate_kernel_matches_plain(cuda, n_rows, w, dtype):
-    g = torch.Generator().manual_seed(n_rows)
-    data = torch.randn((n_rows, w), generator=g).to(cuda, dtype)
+# migrate's move lists: the hazards of moving rows in place (chains of
+# two in both list orders and a chain of three, a swap, a 3-cycle, a
+# self-move beside a plain move, two moves from one source), the edges of
+# the semantics (destinations out of range are dropped, sources clamp into
+# range, every lane masked), the collector's hot/cold overlap (cold movers
+# land in slots hot movers vacate) and a disjoint list (the collector's
+# usual pattern)
+MIGRATE_KINDS = ("chain", "swap", "cycle3", "self", "fan_out",
+                 "dst_out_of_range", "negative_src", "all_masked",
+                 "hot_cold", "disjoint")
+# which live moves the kernel stages (`ref.migrate_phased`: those on a
+# cycle or in the middle of a chain of three), per kind
+MIGRATE_STAGED = {"chain": [0, 0, 0, 0, 0, 1, 0], "swap": [1, 1],
+                  "cycle3": [1, 1, 1], "self": [1, 0], "fan_out": [0, 0],
+                  "dst_out_of_range": [0, 0, 0, 0],
+                  "negative_src": [0, 0, 0], "all_masked": [0, 0, 0],
+                  "hot_cold": [0, 0, 0, 0, 0, 0]}
+
+
+def migrate_moves(kind, n_rows, rng):
+    """(src [n] int32, dst [n] int32, ok [n] bool) numpy arrays of move
+    list `kind` over a pool of n_rows >= 17 rows (its last row the scratch
+    row); "disjoint" draws sources and destinations from rng."""
+    ok = None
+    if kind == "disjoint":
+        half = (n_rows - 1) // 2
+        m = max(1, half // 2)
+        src = rng.choice(half, m, replace=False)
+        dst = half + rng.choice(n_rows - 1 - half, m, replace=False)
+        ok = rng.random(m) < 0.8
+    else:
+        src, dst = {
+            "chain": ([0, 1, 5, 4, 10, 11, 12], [1, 2, 6, 5, 11, 12, 13]),
+            "swap": ([3, 7], [7, 3]),
+            "cycle3": ([2, 5, 9], [5, 9, 2]),
+            "self": ([4, 6], [4, 8]),
+            "fan_out": ([3, 3], [10, 11]),
+            "dst_out_of_range": ([2, 3, 4, 5], [n_rows, -1, n_rows + 7, 9]),
+            "negative_src": ([-3, -1, 5], [7, 8, 9]),
+            "all_masked": ([1, 2, 3], [4, 5, 6]),
+            "hot_cold": ([3, 5, 0, 7, 9, 4], [12, 13, 1, 3, 5, 2]),
+        }[kind]
+        if kind == "all_masked":
+            ok = [0, 0, 0]
+        elif kind == "hot_cold":
+            ok = [1, 1, 0, 1, 1, 0]
+        else:
+            ok = [1] * len(src)
+    return (np.asarray(src, np.int32), np.asarray(dst, np.int32),
+            np.asarray(ok, bool))
+
+
+def _migrate_inputs(kind, n_rows, w, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    data = torch.randn((n_rows, w), generator=g).to(dev, dtype)
     data[-1] = 0
-    # hot moves, then cold moves into the slots the hot moves vacated
-    src = torch.tensor([3, 5, 0, 7, 9, 4], dtype=torch.int32, device=cuda)
-    dst = torch.tensor([12, 13, 1, 3, 5, 2], dtype=torch.int32, device=cuda)
-    ok = torch.tensor([1, 1, 0, 1, 1, 0], dtype=torch.bool, device=cuda)
+    src, dst, ok = (torch.from_numpy(x).to(dev) for x in
+                    migrate_moves(kind, n_rows, np.random.default_rng(seed)))
+    return data, src, dst, ok
+
+
+# (kind, row bytes, dtype, n_rows): every kind at rows of 12 B (4-byte
+# copies), 96 B, 1 KiB, 16 KiB and 128 KiB (16-byte copies) in both dtypes,
+# 6 B bf16 rows (1-byte copies), and the hot/cold overlap at chatglm3-6b's
+# serve pool (10753 rows of 16 KiB)
+MIGRATE_CASES = ([(k, rb, dt, 17) for k in MIGRATE_KINDS
+                  for rb in (12, 96, 1024, 16384, 131072)
+                  for dt in (torch.float32, torch.bfloat16)]
+                 + [(k, 6, torch.bfloat16, 17) for k in MIGRATE_KINDS]
+                 + [("hot_cold", 16384, torch.bfloat16, 10753)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,row_bytes,dtype,n_rows", MIGRATE_CASES)
+def test_migrate_kernel_matches_plain(cuda, kind, row_bytes, dtype, n_rows):
+    """Bit for bit the plain version's and the three-phase model's result;
+    the scratch row stays zero."""
+    w = row_bytes // torch.tensor([], dtype=dtype).element_size()
+    data, src, dst, ok = _migrate_inputs(kind, n_rows, w, dtype, n_rows,
+                                         cuda)
     got = tops.migrate(data.clone(), src, dst, ok)
     want = tref.migrate(data.clone(), src, dst, ok)
-    assert torch.equal(got, want)
+    phased, staged = tref.migrate_phased(data.clone(), src, dst, ok)
+    assert torch.equal(got, want) and torch.equal(phased, want)
     assert not got[-1].any()
+    if kind in MIGRATE_STAGED:
+        assert staged.tolist() == [bool(x) for x in MIGRATE_STAGED[kind]]
+
+
+@pytest.mark.gpu
+def test_migrate_leaves_scratch_zero(cuda):
+    """After every call the stream's scratch (counters, source and
+    destination marks) is all zero again, whatever the move list."""
+    for i, kind in enumerate(MIGRATE_KINDS * 2):
+        data, src, dst, ok = _migrate_inputs(kind, 33, 256, torch.float32,
+                                             i, cuda)
+        got = tops.migrate(data.clone(), src, dst, ok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tref.migrate(data, src, dst, ok))
+        key = (got.device.index, torch.cuda.current_stream().cuda_stream, 33)
+        assert not tops._mig_scratch[key].any(), kind
+
+
+@pytest.mark.gpu
+def test_migrate_is_one_kernel(cuda):
+    """A call is exactly one device operation, the kernel: no memset, no
+    copy (the scratch was zeroed by the warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    data, src, dst, ok = _migrate_inputs("hot_cold", 600, 256,
+                                         torch.float32, 5, cuda)
+    tops.migrate(data.clone(), src, dst, ok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tops.migrate(data, src, dst, ok)
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(dev) == 1 and "migrate_kernel" in dev[0], dev
+
+
+@pytest.mark.gpu
+def test_migrate_cuda_graph_is_one_kernel_node(cuda):
+    """Captured on a stream that called it before, a call is one kernel
+    node that carries the cooperative attribute, and nothing else (no
+    memset); replays on three pools copied into the captured input, with
+    the hot/cold overlap and a disjoint list, each equal the eager call."""
+    n_rows, w = 2049, 256
+    perm = torch.randperm(n_rows - 1,
+                          generator=torch.Generator().manual_seed(3))
+    src = torch.cat([perm[:256], perm[256:512]]).to(cuda, torch.int32)
+    dst = torch.cat([perm[512:768], perm[:256]]).to(cuda, torch.int32)
+    ok = (torch.arange(512) % 7 != 3).to(cuda)
+    data = torch.zeros((n_rows, w), device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tops.migrate(data, src, dst, ok)   # zeroes this stream's scratch
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        tops.migrate(data, src, dst, ok)
+    assert tops.graph_nodes(graph) == dict(nodes=1, kernels=1, cooperative=1)
+    for seed, disjoint in ((41, False), (42, True), (43, False)):
+        if disjoint:
+            dst.copy_(perm[768:1280].to(cuda, torch.int32))
+        pool = torch.randn((n_rows, w), generator=torch.Generator()
+                           .manual_seed(seed)).to(cuda)
+        pool[-1] = 0
+        data.copy_(pool)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(data, tops.migrate(pool.clone(), src, dst, ok))
+        assert torch.equal(data, tref.migrate(pool, src, dst, ok))
+        key = (cuda.index or 0, side.cuda_stream, n_rows)
+        assert not tops._mig_scratch[key].any()
 
 
 @pytest.mark.gpu
