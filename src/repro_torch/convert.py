@@ -5,10 +5,11 @@ in the tests.
 
 Input: the JAX params with every leaf already a numpy array (for example
 `jax.tree.map(np.asarray, params)`). JAX stacks the per-layer dicts on a
-leading [L] axis (its layers run under `vmap`/`scan`); the port keeps one
-dict per layer. Matrices keep the JAX layout ([in, out]; `out` is
-[D, V]). bfloat16 arrays arrive as numpy's `bfloat16` extension type and
-are reinterpreted bit for bit.
+leading [L] axis (its layers run under `vmap`/`scan`), and a hybrid
+model's mamba2 blocks on two, [G, per]; the port keeps one dict per layer
+(per group, a list of one dict per block). Matrices keep the JAX layout
+([in, out]; `out` is [D, V]). bfloat16 arrays arrive as numpy's
+`bfloat16` extension type and are reinterpreted bit for bit.
 """
 from __future__ import annotations
 
@@ -35,18 +36,27 @@ def _first_leaf(tree):
         else tree
 
 
-def from_jax(params: dict, device="cpu") -> dict:
-    """JAX params (numpy leaves) -> the port's params on `device`."""
-    out = {k: _convert(v, device) for k, v in params.items()
-           if k != "layers"}
-    stacked = _convert(params["layers"], device)
-    n = len(_first_leaf(stacked))
-
+def _unstack(stacked) -> list:
+    """A tree of tensors stacked on a leading axis -> a list of trees."""
     def layer(tree, i):
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
         return tree[i].contiguous()
-    out["layers"] = [layer(stacked, i) for i in range(n)]
+    return [layer(stacked, i) for i in range(len(_first_leaf(stacked)))]
+
+
+def from_jax(params: dict, device="cpu") -> dict:
+    """JAX params (numpy leaves) -> the port's params on `device`:
+    "layers" [L] as a list of layer dicts, a hybrid model's "mamba" [G,
+    per] as G lists of `per` block dicts; everything else ("shared_attn"
+    included) leaf by leaf."""
+    out = {k: _convert(v, device) for k, v in params.items()
+           if k not in ("layers", "mamba")}
+    if "layers" in params:
+        out["layers"] = _unstack(_convert(params["layers"], device))
+    if "mamba" in params:
+        out["mamba"] = [_unstack(g) for g in
+                        _unstack(_convert(params["mamba"], device))]
     return out
 
 

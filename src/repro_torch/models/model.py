@@ -1,8 +1,9 @@
 """Public model facade of the port (counterpart of `repro/models/model.py`
-for the dense and MoE decoders and the ssm family): the config, the
-device the weights live on, a seeded random init, and the step functions
-on the JAX package's batch dicts ({"tokens"} for forward / prefill,
-{"tokens", "labels"} for loss).
+for the dense and MoE decoders, the ssm family (falcon-mamba) and the
+hybrid family (zamba2: mamba2 blocks and a shared attention block)): the
+config, the device the weights live on, a seeded random init, and the
+step functions on the JAX package's batch dicts ({"tokens"} for forward /
+prefill, {"tokens", "labels"} for loss).
 """
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ from repro_torch.models import transformer as T
 
 class Model:
     """attn_impl: "full", "blockwise" or "flash" (the flash_attention
-    kernel) for the full-sequence paths of attention layers (ssm layers
-    ignore it and run the mamba_scan kernel); remat takes only "none"
-    here."""
+    kernel) for the full-sequence paths of attention layers, the hybrid
+    family's shared block included (ssm layers ignore it and run the
+    mamba_scan kernel); remat takes only "none" here."""
 
     def __init__(self, cfg: ModelConfig, attn_impl: str = "blockwise",
                  remat: str = "none", device: Optional[str] = None):
@@ -52,7 +53,9 @@ class Model:
         return self.forward(params, batch)[0]
 
     def init_decode_state(self, batch: int, max_len: int) -> dict:
-        """The ssm family's state is O(1) in length: max_len is ignored."""
+        """The ssm family's state is O(1) in length: max_len is ignored;
+        the hybrid family's ring caches (one per shared-block occurrence)
+        hold max_len tokens."""
         return T.init_decode_state(self.cfg, batch, max_len, self.device)
 
     def decode_step(self, params, state, tokens, **kw):

@@ -1,15 +1,22 @@
-"""Selective state-space blocks (port of `repro/models/ssm.py`, mamba1
-only): init, the causal depthwise conv, the full-sequence forward and the
-O(1)-state decode step of falcon-mamba's layers.
+"""Selective state-space blocks (port of `repro/models/ssm.py`): mamba1
+(falcon-mamba) and mamba2 / SSD (zamba2): init, the causal depthwise conv,
+the full-sequence forward and the O(1)-state decode step.
 
-The recurrence h_t = a_t * h_{t-1} + b_t runs in the `mamba_scan` kernel,
-one call over the whole sequence (`kops.mamba_scan`, looked up on the
-module at each call so that a caller can substitute the plain version).
-The JAX package runs it as a chunked associative scan (`_m1_scan`) over
-the same materialised a and b; the kernel needs no chunks, but `chunk`
-keeps its contract (ValueError when S > chunk and S % chunk != 0).
+The recurrences run in the `mamba_scan` kernel (`kops.mamba_scan`, looked
+up on the module at each call so that a caller can substitute the plain
+version):
+  * mamba1: h_t = a_t * h_{t-1} + b_t, one call over the whole sequence.
+    The JAX package runs it as a chunked associative scan (`_m1_scan`)
+    over the same materialised a and b; the kernel needs no chunks, but
+    `chunk` keeps its contract (ValueError when S > chunk and S % chunk
+    != 0).
+  * mamba2 (SSD): the block decomposition into intra-chunk products and
+    an inter-chunk state carry, h_z = exp(sum of the chunk's dt * A) *
+    h_{z-1} + S_z, which the kernel runs over the chunks, one lane per
+    (state, head, head channel): the JAX package's `lax.scan` body.
 
-Decode state per layer: {"h": [B, Din, N] fp32, "conv": [B, K-1, Din]}.
+Decode state per layer: mamba1 {"h": [B, Din, N] fp32, "conv": [B, K-1,
+Din]}; mamba2 {"h": [B, N, nh, 64] fp32, "conv": [B, K-1, Din + 2N]}.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+
+MAMBA2_HEADDIM = 64
 
 
 def _dt_rank(cfg) -> int:
@@ -54,6 +63,38 @@ def init_mamba1(cfg, dtype, generator: torch.Generator, device) -> dict:
         "dt_bias": torch.log(torch.expm1(torch.exp(log_dt))),
         "A_log": a_log.to(device).expand(din, n).contiguous(),
         "D": torch.ones(din, dtype=torch.float32, device=device),
+        "out_proj": nrm((din, d), din ** -0.5),
+    }
+
+
+def init_mamba2(cfg, dtype, generator: torch.Generator, device) -> dict:
+    """Random mamba2 weights at the JAX package's shapes, dtypes and scales
+    (the random values differ: torch's generator is not JAX's). A_log is
+    log U(1, 16) and dt_bias the inverse softplus of a dt drawn log-uniform
+    in [1e-3, 1e-1], one per head; D = 1 and the norm's zero-centred scale
+    are deterministic."""
+    d = cfg.d_model
+    din = d * cfg.ssm_expand
+    n = cfg.ssm_state_dim
+    nh = din // MAMBA2_HEADDIM
+    conv_dim = din + 2 * n                # the conv runs over (x, B, C)
+
+    def nrm(shape, scale):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    def uniform(lo, hi):
+        return lo + torch.rand(nh, generator=generator, device=device,
+                               dtype=torch.float32) * (hi - lo)
+    log_dt = uniform(math.log(1e-3), math.log(1e-1))
+    return {
+        "in_proj": nrm((d, 2 * din + 2 * n + nh), d ** -0.5),
+        "conv_w": nrm((cfg.ssm_conv_dim, conv_dim), 0.2),
+        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=device),
+        "A_log": torch.log(uniform(1.0, 16.0)),
+        "D": torch.ones(nh, dtype=torch.float32, device=device),
+        "dt_bias": torch.log(torch.expm1(torch.exp(log_dt))),
+        "norm": torch.zeros(din, dtype=torch.float32, device=device),
         "out_proj": nrm((din, d), din ** -0.5),
     }
 
@@ -134,4 +175,108 @@ def mamba1_init_state(cfg, batch: int, dtype, device
                          device=device),
         "conv": torch.zeros((batch, cfg.ssm_conv_dim - 1, din), dtype=dtype,
                             device=device),
+    }
+
+
+def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128,
+                   state: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SSD block decomposition. x: [B, S, D]; state (decode continuation)
+    or None (from zeros). Returns (y [B, S, D], new state {"h" [B, N, nh,
+    64] fp32, "conv" [B, K-1, Din + 2N]}). S must be <= chunk or a
+    multiple of it (ValueError otherwise), as in JAX.
+
+    Per chunk of L = min(chunk, S) steps: the intra-chunk outputs through
+    the [L, L] decay mask, each chunk's final state S_z from zero, and the
+    carry h_z = exp(sum of the chunk's dt * A) h_{z-1} + S_z across the
+    NC chunks in `kops.mamba_scan` (a [B, NC, N, nh * 64], b = S_z, h0 the
+    state's h); each chunk then reads the carry it starts from."""
+    bsz, s, d = x.shape
+    din = d * cfg.ssm_expand
+    n = cfg.ssm_state_dim
+    ph = MAMBA2_HEADDIM
+    nh = din // ph
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"seq {s} % chunk {c} != 0")
+    nc = s // c
+
+    zxbcdt = x @ p["in_proj"]
+    z, xbc, dt = zxbcdt.split([din, din + 2 * n, nh], dim=-1)
+    conv_state = None if state is None else state["conv"]
+    xbc, new_conv = causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc = F.silu(xbc.float()).to(zxbcdt.dtype)
+    xr, bmat, cmat = xbc.split([din, n, n], dim=-1)
+
+    dt = _softplus(dt.float() + p["dt_bias"])             # [B, S, H]
+    a = -torch.exp(p["A_log"])                            # [H]
+    xh = xr.reshape(bsz, s, nh, ph)
+    dtc = dt.reshape(bsz, nc, c, nh)
+    xc = xh.reshape(bsz, nc, c, nh, ph).float()
+    bc = bmat.float().reshape(bsz, nc, c, n)
+    cc = cmat.float().reshape(bsz, nc, c, n)
+
+    da = dtc * a                                          # [B, NC, L, H]
+    cum = torch.cumsum(da, dim=2)                         # within a chunk
+    dtx = dtc[..., None] * xc                             # [B, NC, L, H, P]
+    # y_intra[l] = sum_{m <= l} (C_l . B_m) exp(cum_l - cum_m) dt_m x_m
+    seg = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                   device=x.device))
+    seg = torch.where(causal[None, None, :, :, None], seg, 0.0)
+    cb = torch.einsum("bzln,bzmn->bzlm", cc, bc)          # [B, NC, L, L]
+    seg.mul_(cb[..., None])                               # [B, NC, L, L, H]
+    del cb
+    y_intra = torch.einsum("bzlmh,bzmhp->bzlhp", seg, dtx)
+    del seg  # 335 MB at zamba2's prefill shape
+
+    # chunk-final states from zero: S_z = sum_m exp(cum_last - cum_m)
+    # dt_m B_m x_m, [B, NC, N, H, P]
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)     # [B, NC, L, H]
+    sstate = torch.einsum("bzmn,bzmhp->bznhp", bc,
+                          decay_to_end[..., None] * dtx)
+    del dtx, decay_to_end
+    # the carry across chunks, one lane per (n, h, p)
+    chunk_decay = torch.exp(da.sum(dim=2))                # [B, NC, H]
+    h0 = (torch.zeros((bsz, n, nh * ph), dtype=torch.float32,
+                      device=x.device) if state is None
+          else state["h"].reshape(bsz, n, nh * ph))
+    a_c = chunk_decay[:, :, None, :, None].expand(bsz, nc, n, nh, ph) \
+        .reshape(bsz, nc, n, nh * ph).contiguous()
+    h_all, h_last = kops.mamba_scan(
+        a_c, sstate.reshape(bsz, nc, n, nh * ph).contiguous(), h0)
+    del a_c, sstate
+    h_prevs = torch.cat([h0[:, None], h_all[:, :-1]], dim=1) \
+        .reshape(bsz, nc, n, nh, ph)                      # each chunk's start
+    del h_all
+
+    y_inter = torch.einsum("bzln,bznhp->bzlhp", cc, h_prevs)
+    y = y_intra + y_inter * torch.exp(cum)[..., None]
+    del y_intra, y_inter, h_prevs
+    y = y.reshape(bsz, s, nh, ph) + xh.float() * p["D"][:, None]
+    y = y.reshape(bsz, s, din)
+    # gated RMSNorm (mamba2's norm before out_proj)
+    y = y * F.silu(z.float())
+    y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-5) \
+        * (1.0 + p["norm"])
+    out = y.to(x.dtype) @ p["out_proj"]
+    return out, {"h": h_last.reshape(bsz, n, nh, ph), "conv": new_conv}
+
+
+def mamba2_step(p: dict, x: torch.Tensor, cfg,
+                state: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode: x [B, 1, D] -> (y [B, 1, D], new state). O(1) in seq."""
+    return mamba2_forward(p, x, cfg, chunk=1, state=state)
+
+
+def mamba2_init_state(cfg, batch: int, dtype, device
+                      ) -> Dict[str, torch.Tensor]:
+    din = cfg.d_model * cfg.ssm_expand
+    n = cfg.ssm_state_dim
+    return {
+        "h": torch.zeros((batch, n, din // MAMBA2_HEADDIM, MAMBA2_HEADDIM),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_dim - 1, din + 2 * n),
+                            dtype=dtype, device=device),
     }

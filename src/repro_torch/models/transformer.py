@@ -1,24 +1,31 @@
-"""The decoder-only LM (port of the dense, MoE and ssm branches of
+"""The decoder-only LM (port of the dense, MoE, ssm and hybrid branches of
 `repro/models/transformer.py`): init, the full-sequence forward and loss
 (`attn_ffn_block`, `lm_forward`, `lm_loss`), and single-token decode
 (`init_decode_state`, `lm_decode_step`) over a dense ring cache
 (`decode_layer_step`, `attn_block_decode`) or, for the ssm family
 (falcon-mamba: mamba1 layers, `models/ssm.py`), an O(1) recurrent state.
+The hybrid family (zamba2) runs G groups, each of `every - 1` mamba2
+blocks followed by the one shared attention block (`_hybrid_shape`): an
+O(1) state per mamba2 block and a ring cache per occurrence of the shared
+block.
 
 Parameters are a plain dict: {"embed" [V, D], "final_ln" [D], "out" [D, V]
 (absent with tied embeddings), "layers": [one dict per layer]}; an
 attention layer holds attention weights and "ffn" (dense) or "moe"
-(`models/moe.py`), an ssm layer {"ln", "m"}. The JAX
-package stacks the layer dicts on a leading [L] axis; the port keeps a
-list, since its layers run as a Python loop (`convert.py` unstacks).
+(`models/moe.py`), an ssm layer {"ln", "m"}. A hybrid model has no
+"layers" but "mamba": [G lists of `every - 1` {"ln", "m"} dicts] and
+"shared_attn": one attention layer, used at every occurrence. The JAX
+package stacks the layer dicts on leading axes ([L], or [G, per]); the
+port keeps lists, since its layers run as a Python loop (`convert.py`
+unstacks).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import MAMBA1
+from repro_torch.configs.base import MAMBA1, MAMBA2, SHARED_ATTN
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -60,23 +67,36 @@ def init_attn_layer(cfg, dtype, generator, device) -> dict:
 
 
 def _check_ported(cfg) -> None:
-    """The port runs the dense and MoE families and the ssm family of
-    mamba1 layers (falcon-mamba); every other family raises."""
+    """The port runs the dense and MoE families, the ssm family of mamba1
+    layers (falcon-mamba) and the hybrid family of mamba2 and shared
+    attention blocks in whole groups (zamba2); every other family
+    raises."""
     attn = cfg.family in ("dense", "moe") and not cfg.block_pattern
     ssm = cfg.family == "ssm" and set(cfg.blocks) == {MAMBA1}
-    if not (attn or ssm) or cfg.is_encoder_decoder:
+    hybrid = (cfg.family == "hybrid"
+              and set(cfg.blocks) <= {MAMBA2, SHARED_ATTN}
+              and cfg.shared_attn_every > 0
+              and cfg.num_layers % cfg.shared_attn_every == 0)
+    if not (attn or ssm or hybrid) or cfg.is_encoder_decoder:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
 def _no_hiddens(cfg, return_hiddens: bool) -> None:
-    if return_hiddens and cfg.family == "ssm":
+    if return_hiddens and cfg.family in ("ssm", "hybrid"):
         raise ValueError("return_hiddens: attn-family layers only")
 
 
+def _hybrid_shape(cfg) -> Tuple[int, int]:
+    """(mamba2 blocks per group, groups) of the hybrid pattern: each group
+    is `shared_attn_every - 1` mamba2 blocks, then the shared block."""
+    every = cfg.shared_attn_every
+    return every - 1, cfg.num_layers // every
+
+
 def init_lm(cfg, generator: torch.Generator, device) -> dict:
-    """Random weights for a dense, MoE or ssm decoder, at the JAX package's
-    shapes and scales (the values differ: torch's generator is not
-    JAX's)."""
+    """Random weights for a dense, MoE, ssm or hybrid decoder, at the JAX
+    package's shapes and scales (the values differ: torch's generator is
+    not JAX's)."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
     params = {
@@ -88,12 +108,21 @@ def init_lm(cfg, generator: torch.Generator, device) -> dict:
     if not cfg.tie_embeddings:
         params["out"] = _normal((cfg.vocab_size, cfg.d_model), 0.02, dtype,
                                 generator, device).T.contiguous()
+
+    def ssm_block(init):
+        return {"ln": torch.zeros(cfg.d_model, dtype=torch.float32,
+                                  device=device),
+                "m": init(cfg, dtype, generator, device)}
+    if cfg.family == "hybrid":
+        per, groups = _hybrid_shape(cfg)
+        params["mamba"] = [[ssm_block(ssm_lib.init_mamba2)
+                            for _ in range(per)] for _ in range(groups)]
+        params["shared_attn"] = init_attn_layer(cfg, dtype, generator,
+                                                device)
+        return params
     if cfg.family == "ssm":
-        layers: List[dict] = [
-            {"ln": torch.zeros(cfg.d_model, dtype=torch.float32,
-                               device=device),
-             "m": ssm_lib.init_mamba1(cfg, dtype, generator, device)}
-            for _ in range(cfg.num_layers)]
+        layers: List[dict] = [ssm_block(ssm_lib.init_mamba1)
+                              for _ in range(cfg.num_layers)]
     else:
         layers = [init_attn_layer(cfg, dtype, generator, device)
                   for _ in range(cfg.num_layers)]
@@ -206,7 +235,9 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     post-layer residual stream (attn-family layers only). For the
     attention family aux also holds, as in JAX, "moe_aux_loss" (fp32, the
     sum over layers), "expert_counts" [E] and "expert_counts_per_layer"
-    [L, E] int32 (zeros, with E = 1, for a dense config). ssm layers
+    [L, E] int32 (zeros, with E = 1, for a dense config); for the hybrid
+    family only "moe_aux_loss" (0) and "expert_counts" [1] (zeros), JAX's
+    keys there, and "kv_cache" None with `return_cache`. ssm layers
     ignore `positions` and `attn_impl`."""
     _check_forward(cfg, remat, extra_embeds, enc_embeds)
     _no_hiddens(cfg, return_hiddens)
@@ -221,6 +252,14 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(params, cfg, x, positions, attn_impl)
+        aux = {"moe_aux_loss": torch.zeros((), device=x.device),
+               "expert_counts": torch.zeros(1, dtype=torch.int32,
+                                            device=x.device)}
+        if return_cache:
+            aux["kv_cache"] = None
+        return _head(params, cfg, x), aux
     kvs, hs, losses, counts = [], [], [], []
     for lp in params["layers"]:
         x, loss, kv, cnt = attn_ffn_block(lp, x, cfg, positions,
@@ -248,6 +287,20 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     return _head(params, cfg, x), aux
 
 
+def _hybrid_forward(params: dict, cfg, x: torch.Tensor, positions,
+                    attn_impl: str) -> torch.Tensor:
+    """zamba2: each group's mamba2 blocks (x + mamba2(rms_norm(x))), then
+    the shared attention block, the same weights at every occurrence."""
+    for group in params["mamba"]:
+        for lp in group:
+            y, _ = ssm_lib.mamba2_forward(
+                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+            x = x + y
+        x = attn_ffn_block(params["shared_attn"], x, cfg, positions,
+                           attn_impl=attn_impl)[0]
+    return x
+
+
 def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
             *, extra_embeds=None, enc_embeds=None,
             attn_impl: str = "blockwise", remat: str = "none"):
@@ -271,22 +324,35 @@ def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:
     [L, B, C, KV, Dh], "k_pos": [L, B, C] int32 (-1 empty)}}. C is max_len,
     clipped to the sliding window for windowed configs (ring buffer). For
     the ssm family: {"pos": int, "ssm": {"h": [L, B, Din, N] fp32, "conv":
-    [L, B, K-1, Din]}}, the JAX package's layout; max_len is ignored."""
+    [L, B, K-1, Din]}}, the JAX package's layout; max_len is ignored. For
+    the hybrid family (G groups of `per` mamba2 blocks): {"pos", "ssm":
+    {"h": [G, per, B, N, nh, 64] fp32, "conv": [G, per, B, K-1, Din + 2N]},
+    "kv": the ring caches above with G in place of L, one per occurrence
+    of the shared block}."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
+
+    def stacked(st, lead):
+        return {k: torch.zeros(lead + v.shape, dtype=v.dtype, device=device)
+                for k, v in st.items()}
     if cfg.family == "ssm":
-        st = ssm_lib.mamba1_init_state(cfg, batch, dtype, device)
-        return {"pos": 0, "ssm": {
-            k: torch.zeros((cfg.num_layers,) + v.shape, dtype=v.dtype,
-                           device=device) for k, v in st.items()}}
+        return {"pos": 0, "ssm": stacked(ssm_lib.mamba1_init_state(
+            cfg, batch, dtype, device), (cfg.num_layers,))}
     hd = cfg.resolved_head_dim
     c = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    shape = (cfg.num_layers, batch, c, cfg.num_kv_heads, hd)
-    return {"pos": 0, "kv": {
+    n_caches = cfg.num_layers
+    state = {"pos": 0}
+    if cfg.family == "hybrid":
+        per, n_caches = _hybrid_shape(cfg)
+        state["ssm"] = stacked(ssm_lib.mamba2_init_state(
+            cfg, batch, dtype, device), (n_caches, per))
+    shape = (n_caches, batch, c, cfg.num_kv_heads, hd)
+    state["kv"] = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "k_pos": torch.full(shape[:3], -1, dtype=torch.int32,
-                            device=device)}}
+                            device=device)}
+    return state
 
 
 def attn_block_decode(p: dict, x: torch.Tensor, cfg, cache: dict, pos: int):
@@ -333,6 +399,19 @@ def lm_decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor, *,
             x = x + y
         return _head(params, cfg, x)[:, 0], dict(state, pos=pos + 1)
     kv = state["kv"]
+    if cfg.family == "hybrid":
+        ssm = state["ssm"]
+        for g, group in enumerate(params["mamba"]):
+            for i, lp in enumerate(group):
+                y, new = ssm_lib.mamba2_step(
+                    lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                    {k: v[g, i] for k, v in ssm.items()})
+                for k, v in ssm.items():
+                    v[g, i] = new[k]
+                x = x + y
+            x = attn_block_decode(params["shared_attn"], x, cfg,
+                                  {n: t[g] for n, t in kv.items()}, pos)
+        return _head(params, cfg, x)[:, 0], dict(state, pos=pos + 1)
     hs = []
     for i, lp in enumerate(params["layers"]):
         x = attn_block_decode(lp, x, cfg, {n: t[i] for n, t in kv.items()},

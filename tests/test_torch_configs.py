@@ -32,7 +32,7 @@ from test_torch_pool import assert_state_equal
 from test_torch_server import KW
 
 PORTED = ["chatglm3-6b", "falcon-mamba-7b", "glm4-9b", "granite-20b",
-          "granite-34b", "mixtral-8x7b", "olmoe-1b-7b"]
+          "granite-34b", "mixtral-8x7b", "olmoe-1b-7b", "zamba2-2.7b"]
 DENSE = ["glm4-9b", "granite-20b", "granite-34b"]
 
 

@@ -22,14 +22,15 @@ FLASH_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 256, 8, 1, 16)]
 FLASH_MASKS = [(True, 0), (True, 64), (False, 0)]
 # bf16 edges of the tensor-core flash kernel (b, s, h, kv, d, causal,
 # window): one partial key tile (S = 64, 100); rep = H/KV of 1, 3 (63-row
-# warpgroups) and 16; D = 16, 32, 64, 96, 128; windows 16, 64 and 200
-# across the 128-key tiles; non-causal
+# warpgroups) and 16; D = 16, 32, 64, 80 (zamba2's shared block), 96,
+# 128; windows 16, 64 and 200 across the 128-key tiles; non-causal
 FLASH_TC_EDGES = [
     (2, 64, 4, 4, 64, True, 0), (2, 100, 6, 2, 32, True, 0),
     (1, 100, 32, 2, 128, False, 0), (2, 256, 3, 1, 96, True, 0),
     (1, 384, 6, 2, 16, True, 16), (1, 512, 32, 2, 128, True, 64),
     (2, 384, 4, 4, 128, True, 200), (1, 256, 16, 1, 64, False, 64),
-    (1, 128, 9, 3, 96, False, 200), (2, 512, 16, 16, 32, True, 0)]
+    (1, 128, 9, 3, 96, False, 200), (2, 512, 16, 16, 32, True, 0),
+    (2, 384, 32, 32, 80, True, 0)]
 
 
 def _flash_inputs(b, s, h, kv, d, seed):
@@ -762,6 +763,85 @@ def test_falcon_mamba_on_card_matches_cpu(cuda, monkeypatch):
     for k in ("h", "conv"):
         assert (s_cpu["ssm"][k] - s_gpu["ssm"][k].cpu()).abs().max().item() \
             < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,chunk,with_state", [(256, 128, False),
+                                                (24, 8, True), (1, 1, True)])
+def test_mamba2_forward_kernel_matches_plain(cuda, monkeypatch, s, chunk,
+                                             with_state):
+    """A zamba2-reduced mamba2 block in float32 on the card: its chunk
+    carry through the mamba_scan kernel (one launch a call) against the
+    same call with the plain version patched in, bit for bit (the kernel
+    and its plain version agree bit for bit, and every other op is the
+    same call on the same card)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b", reduced=True),
+                              dtype="float32")
+    p = ssm.init_mamba2(cfg, torch.float32,
+                        torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, s, cfg.d_model), generator=g, device=cuda)
+    state = None
+    if with_state:
+        state = {k: torch.randn(v.shape, generator=g, device=cuda).to(v.dtype)
+                 * 0.5 for k, v in ssm.mamba2_init_state(
+                     cfg, 2, torch.float32, cuda).items()}
+    n0 = tops.launches["mamba_scan"]
+    y, new = ssm.mamba2_forward(p, x, cfg, chunk=chunk, state=state)
+    assert tops.launches["mamba_scan"] == n0 + 1
+    monkeypatch.setattr(tops, "mamba_scan", tref.mamba_scan)
+    y_ref, new_ref = ssm.mamba2_forward(p, x, cfg, chunk=chunk, state=state)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_ref)
+    assert all(torch.equal(new[k], new_ref[k]) for k in new)
+
+
+@pytest.mark.gpu
+def test_zamba2_on_card_matches_cpu(cuda, monkeypatch):
+    """zamba2-2.7b reduced, float32, on the card (the mamba_scan kernel for
+    every mamba2 block's carry, flash_attention's CUDA-core kernel for the
+    shared block's fp32 prefill) against the CPU (their plain versions):
+    a prefill of S=256 (two SSD chunks) launches one mamba_scan per mamba2
+    block and one flash_attention per group, a decode step one mamba_scan
+    per block and nothing else; logits and states within 1e-4 (fp32 sums
+    in another order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import _hybrid_shape
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b", reduced=True),
+                              dtype="float32")
+    per, groups = _hybrid_shape(cfg)
+    m_cpu = Model(cfg, attn_impl="flash", device="cpu")
+    m_gpu = Model(cfg, attn_impl="flash", device="cuda")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _to(p_cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                              (2, 256)))
+    tops.reset_launches()
+    lg = m_gpu.prefill(p_gpu, {"tokens": toks.to(cuda)})
+    assert tops.launches["mamba_scan"] == per * groups
+    assert tops.launches["flash_attention"] == groups
+    assert sum(tops.launches.values()) == (per + 1) * groups
+    lc = m_cpu.prefill(p_cpu, {"tokens": toks})
+    assert (lc - lg.cpu()).abs().max().item() < 1e-4
+    s_cpu, s_gpu = m_cpu.init_decode_state(2, 8), m_gpu.init_decode_state(2, 8)
+    for t in range(4):
+        tops.reset_launches()
+        dg, s_gpu = m_gpu.decode_step(p_gpu, s_gpu, toks[:, t].to(cuda))
+        assert tops.launches["mamba_scan"] == per * groups
+        assert sum(tops.launches.values()) == per * groups
+        dc, s_cpu = m_cpu.decode_step(p_cpu, s_cpu, toks[:, t])
+        assert (dc - dg.cpu()).abs().max().item() < 1e-4
+    for part in ("ssm", "kv"):
+        for k, v in s_cpu[part].items():
+            assert (v.float() - s_gpu[part][k].cpu().float()).abs().max() \
+                .item() < 1e-4, (part, k)
 
 
 # ---------------------------------------------------------------------------

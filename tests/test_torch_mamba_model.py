@@ -159,7 +159,8 @@ def test_unported_options_raise():
     assert aux == {"kv_cache": None}
     with pytest.raises(NotImplementedError, match="training slice"):
         TT.lm_forward(tp, tm.cfg, toks, remat="full")
-    # mamba2 layers and the hybrid family wait for a later slice
+    # mamba1 blocks in the hybrid family, and mamba2 blocks in the ssm
+    # family, are not ported
     for bad in (dataclasses.replace(tm.cfg, family="hybrid"),
                 dataclasses.replace(tm.cfg, block_pattern=("mamba2",) * 2)):
         with pytest.raises(NotImplementedError, match="not ported"):
