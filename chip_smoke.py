@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--access-scan-was PATH] [--migrate-was PATH]
-                          [--engine-only | --hybrid-only]
+                          [--engine-only | --hybrid-only | --train-only]
 
 Run from the root of a checkout (it puts `src` on sys.path itself). With
 --access-scan-was, phase 3 also builds an earlier `access_scan.cu` (its C
@@ -10,8 +10,9 @@ entry without the scratch argument) and checks and times it beside the
 kernel; --migrate-was does the same for an earlier `migrate.cu` (its C
 entry without the work and scratch arguments) in phases 3 and 10.
 --engine-only runs phases 1, 2 and 10 alone, --hybrid-only phases 1, 2,
-phase 3's flash_attention and mamba_scan checks and phase 11; neither
-prints a result line. In order:
+phase 3's flash_attention and mamba_scan checks and phase 11, --train-only
+phases 1, 2, phase 3's mamba_scan checks and phase 12; none prints a
+result line. In order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port (`src/repro_torch/kernels/
@@ -31,7 +32,9 @@ prints a result line. In order:
      fp32, paged_attention's access bits exactly,
      mamba_scan bit for bit in fp32 and bf16 inputs (also at zamba2's
      mamba2 chunk carry: B=2 x 32 chunks and B=8 x 1 over 64 x 5120
-     lanes); flash_attention at chatglm3-6b's, olmoe-1b-7b's and
+     lanes), and its backward kernel mamba_scan_bwd bit for bit against
+     `ref.mamba_scan_bwd` at the sweep's shapes, falcon-mamba's prefill
+     shape and zamba2's carry; flash_attention at chatglm3-6b's, olmoe-1b-7b's and
      zamba2-2.7b's (H = KV = 32, D = 80) prefill shapes, and
      at the bf16 edges of its tensor-core variant and on strided views,
      each case logged with the variant that ran: bf16 on the tensor
@@ -69,7 +72,11 @@ prints a result line. In order:
      and exactly one at each window's close. The same requests are then
      served in eager mode (op by op, the server's private `_eager`) under
      the same gates: the greedy tokens and the final pool metadata must be
-     identical to the graph run's, and both walls are printed;
+     identical to the graph run's, and both walls are printed; since
+     the eager run is host-bound, its wall proportional to the layers,
+     this comparison runs on a second server over the model's first
+     EAGER_LAYERS = 4 layers (the same weights), graph run then eager
+     run;
   5. where the serve time goes, for each mode: the same requests served
      again with torch.profiler on for two windows in mid-run; the
      device's busy and idle share of those windows' unprofiled wall time
@@ -77,8 +84,9 @@ prints a result line. In order:
      window, and each HADES kernel's device time per launch
      (paged_attention: one split and one combine kernel per layer and
      step, timed together, and counted: 448 of each; access_scan: its one
-     kernel); in eager mode also the device time, copies and memsets per
-     step by the port function and host op that launched them;
+     kernel); in eager mode (at 4 layers) also the device time, copies
+     and memsets per step by the port function and host op that launched
+     them;
   6. the kernel path against the plain path on the card at 2 layers and
      full width: a teacher-forced serve window (pool metadata exactly,
      logits within 5e-2), the kernel path a replay of the window's graph
@@ -176,7 +184,23 @@ prints a result line. In order:
      against blockwise in float32 and bfloat16 (phase 6's rule), and the
      prefill with mamba_scan's plain version patched in (phase 6's rule),
      with the float32 decode of B=2 x 64 tokens against their prefill
-     within 1e-3.
+     within 1e-3;
+ 12. training, under deterministic algorithms where bits are compared:
+     (a) zamba2-2.7b at full width and depth (bf16, remat="full" per
+     group, attn_impl="blockwise", AdamW as `launch/train.py` builds it),
+     six steps of `Trainer.run` on B=2 x S=4096 tokens of
+     `TokenPipeline(seed=0)` (B=1 if B=2 does not fit, the cut listed):
+     every loss and grad norm finite, exactly 90 mamba_scan launches (45
+     forward, 45 recompute) and 45 mamba_scan_bwd a step and no other
+     kernel; ms a step, train tok/s, peak memory, and one profiled step
+     (idle share, both kernels' records, device time by where it comes
+     from); (b) zamba2-2.7b at full width and 12 layers in float32: every
+     gradient through the kernels bit for bit the one with the plain
+     scan patched in; (c) chatglm3-6b at full width and 4 layers, bf16,
+     B=2 x S=2048: the gradients under remat "none", "full" and "dots"
+     bit for bit equal, then three Trainer steps with finite losses; (d)
+     zamba2-2.7b reduced: a run resumed from step 3's checkpoint replays
+     steps 4-6 bit for bit (losses, params, optimizer state).
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
 is not run from a checkout, or if any phase fails. The last lines of its
@@ -187,6 +211,7 @@ build/chip_smoke.json.
 import collections
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -208,6 +233,9 @@ DECODE_B, DECODE_PROMPT, DECODE_NEW = 8, 32, 32   # falcon-mamba decode
 DRIFT_S = 64       # tokens of the prefill-vs-decode comparisons
 SSD_CHUNK = 128    # mamba2_forward's chunk: the carry runs over S / 128
 TRACE_FROM = 6     # first of the two traced serve windows; lanes are full
+# the depth of the eager serve runs (phases 4-5, 9(a)), against the graph
+# run at the same depth: op by op a step is host-bound, ~12 ms a layer
+EAGER_LAYERS = 4
 PROFILES = 3       # traces taken at most when one comes back short (`measure_prefill`, `device_ops`)
 # the widest k-th to (k+1)-th gate gap at which the two paths' bf16 rounding
 # may flip a top-k choice whose router input differs by rounding only: the
@@ -219,12 +247,15 @@ HADES_KERNELS = {"paged_attention": ("paged_attention_split",
                                      "paged_attention_combine_kernel"),
                  "access_scan": ("access_scan_kernel",),
                  "migrate": ("migrate_kernel",)}
+# the source of a kernel that shares another's file
+KERNEL_SOURCE = {"mamba_scan_bwd": "mamba_scan"}
 TPU_KERNEL = {
     "paged_attention": "src/repro/kernels/paged_attention.py:74",
     "access_scan": "src/repro/kernels/access_scan.py:88",
     "migrate": "src/repro/kernels/migrate.py:38",
     "flash_attention": "src/repro/kernels/flash_attention.py:65",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:44",
+    "mamba_scan_bwd": "src/repro/kernels/mamba_scan.py:44",
 }
 FLASH_SOURCES = {
     "tensor_cores": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -234,7 +265,7 @@ LIBRARY = {
     "migrate": "data[dst] = data[src]", "access_scan": None,
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True, enable_gqa=True)",
-    "mamba_scan": None}
+    "mamba_scan": None, "mamba_scan_bwd": None}
 
 
 def log(*a):
@@ -1089,7 +1120,10 @@ def check_mamba_scan(dev, mm, zamba):
     sequence) and in a decode step (B=8, one chunk of one token), each in
     fp32 and bf16 inputs with a in [0.3, 1); then timed at falcon-mamba's
     prefill shape and at zamba2's prefill carry in fp32, the inputs the
-    models give it."""
+    models give it. Its backward kernel, `mamba_scan_bwd`, likewise bit for
+    bit against `ref.mamba_scan_bwd` at the sweep's shapes, falcon-mamba's
+    prefill shape and zamba2's carry (the shapes a train step gives it),
+    in fp32 and bf16, and timed at the last two in fp32 (under "bwd")."""
     import torch
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1104,6 +1138,13 @@ def check_mamba_scan(dev, mm, zamba):
         b = torch.randn(shape, generator=g, device=dev).to(dtype)
         h0 = torch.randn((shape[0],) + shape[2:], generator=g, device=dev)
         return a, b, h0
+
+    def bwd_inputs(shape, dtype):
+        a, b, h0 = inputs(shape, dtype)
+        h_all = ops.mamba_scan(a, b, h0)[0]
+        del b
+        return (a, h0, h_all, torch.randn(shape, generator=g, device=dev),
+                torch.randn(h0.shape, generator=g, device=dev))
 
     shapes = SCAN_SWEEP + [(DECODE_B, 1, c, n), main, carry, carry_decode]
     cases = [(shape, dtype) for shape in shapes
@@ -1120,23 +1161,53 @@ def check_mamba_scan(dev, mm, zamba):
         del args, got, want
     log(f"mamba_scan: bit for bit (h_all, h_last) at {len(cases)} cases: "
         f"{shapes} x fp32 / bf16 inputs")
+    bwd_shapes = SCAN_SWEEP + [main, carry]
+    bwd_cases = [(shape, dtype) for shape in bwd_shapes
+                 for dtype in (torch.float32, torch.bfloat16)]
+    for shape, dtype in bwd_cases:
+        args = bwd_inputs(shape, dtype)
+        got = ops.mamba_scan_bwd(*args)
+        want = ref.mamba_scan_bwd(*args)
+        torch.cuda.synchronize()
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(got, want))
+        if err != 0 or not all(map(torch.equal, got, want)) or \
+                [x.dtype for x in got] != [dtype, dtype, torch.float32]:
+            raise AssertionError(f"mamba_scan_bwd {shape} {dtype}: max "
+                                 f"|err| {err}, want 0")
+        del args, got, want
+        torch.cuda.empty_cache()
+    log(f"mamba_scan_bwd: bit for bit (da, db, dh0) at {len(bwd_cases)} "
+        f"cases: {bwd_shapes} x fp32 / bf16 inputs")
 
-    def timed(shape, iters, what):
-        args = inputs(shape, torch.float32)
-        t = timings(lambda: ops.mamba_scan(*args), iters,
-                    lambda: ref.mamba_scan(*args), 3)
+    def timed(shape, iters, what, bwd=False):
+        if bwd:
+            args = bwd_inputs(shape, torch.float32)
+            fn, plain = ops.mamba_scan_bwd, ref.mamba_scan_bwd
+        else:
+            args = inputs(shape, torch.float32)
+            fn, plain = ops.mamba_scan, ref.mamba_scan
+        t = timings(lambda: fn(*args), iters, lambda: plain(*args), 3)
         b, s, c_, n_ = shape
         elems, lanes = b * s * c_ * n_, b * c_ * n_
-        b_ms, b_by = bound(2 * elems * 4 + lanes * 4 + elems * 4 + lanes * 4,
-                           2 * elems, "fp32")
-        log(f"mamba_scan ({what}): {_fmt(t)} (no library call), bound "
+        # forward: a, b read, h_all written; h0 read, h_last written. bwd:
+        # a, h_all, dh_all read, da, db written; h0, dh_last read, dh0
+        # written. fp32 operations: 2 a step forward, 3 backward
+        b_ms, b_by = bound(
+            (5 * elems + 3 * lanes) * 4 if bwd else
+            (3 * elems + 2 * lanes) * 4, (3 if bwd else 2) * elems, "fp32")
+        name = "mamba_scan_bwd" if bwd else "mamba_scan"
+        log(f"{name} ({what}): {_fmt(t)} (no library call), bound "
             f"{b_ms:.5f} ms ({b_by}) at B={b} S={s} C={c_} N={n_} fp32")
         del args
         torch.cuda.empty_cache()
         return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, **t,
                     shape=f"B={b} S={s} C={c_} N={n_} fp32")
     return dict(timed(main, 10, "falcon-mamba prefill"),
-                zamba2=timed(carry, 50, "zamba2 prefill carry"))
+                zamba2=timed(carry, 50, "zamba2 prefill carry"),
+                bwd=dict(timed(main, 10, "falcon-mamba prefill", bwd=True),
+                         zamba2=timed(carry, 50, "zamba2 train carry",
+                                      bwd=True)))
 
 
 # ---------------------------------------------------------------------------
@@ -1256,11 +1327,14 @@ def _serve_run(srv, params, reqs, label):
 
 def serve_full(dev, arch="chatglm3-6b"):
     """Phase 4 (phase 9(a) for olmoe-1b-7b) in graph mode (the default on
-    the card: every window one CUDA graph replay), phase 5 on it, then the
-    same requests served and traced again in eager mode (op by op) on the
-    same server: the greedy tokens and the final pool metadata must be
-    identical. Every model step launches paged_attention once per layer,
-    and an MoE config's capacity at the lanes' batch drops no token."""
+    the card: every window one CUDA graph replay) at full width and depth,
+    phase 5 on it; then, on a second server over the model's first
+    EAGER_LAYERS layers (the same weights), the same requests in graph
+    mode and in eager mode (op by op), the eager run traced: the greedy
+    tokens, the final pool metadata and the launch counts of the two must
+    be identical. Every model step launches paged_attention once per
+    layer, and an MoE config's capacity at the lanes' batch drops no
+    token."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import moe
@@ -1278,32 +1352,58 @@ def serve_full(dev, arch="chatglm3-6b"):
     log(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params ({str(cfg.dtype)}), init "
         f"{time.perf_counter() - t0:.1f} s")
-    srv = Server(model, ServerConfig(**SERVE))
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,
                                         int(rng.integers(32, 65))).tolist(),
                     max_new=MAX_NEW) for _ in range(N_REQUESTS)]
-    # warm-up: one short request, which captures the serve window's graph
-    # (its first window runs eagerly, the capture follows; not counted)
-    t0 = time.perf_counter()
-    srv.serve(params, [Request(prompt=[1, 2, 3], max_new=2)])
-    torch.cuda.synchronize()
-    log(f"warm-up serve with the capture: {time.perf_counter() - t0:.2f} s, "
-        f"{len(srv._graphs)} graph(s)")
-    results, graph, starts = _serve_run(srv, params, reqs, f"{arch} graph")
-    if graph["launches"]["paged_attention"] != graph["steps"] * cfg.num_layers:
-        raise AssertionError(f"{graph['launches']['paged_attention']} "
-                             f"paged_attention launches in {graph['steps']} "
-                             f"steps of {cfg.num_layers} layers")
-    if srv.replays != graph["windows"]:
-        raise AssertionError(f"{srv.replays} graph replays in "
-                             f"{graph['windows']} windows, want one each")
+
+    def graph_run(srv, params, label):
+        # warm-up: one short request, which captures the serve window's
+        # graph (its first window runs eagerly, the capture follows; not
+        # counted)
+        t0 = time.perf_counter()
+        srv.serve(params, [Request(prompt=[1, 2, 3], max_new=2)])
+        torch.cuda.synchronize()
+        log(f"warm-up serve with the capture: {time.perf_counter() - t0:.2f}"
+            f" s, {len(srv._graphs)} graph(s)")
+        results, run, starts = _serve_run(srv, params, reqs, label)
+        layers = srv.model.cfg.num_layers
+        if run["launches"]["paged_attention"] != run["steps"] * layers:
+            raise AssertionError(f"{run['launches']['paged_attention']} "
+                                 f"paged_attention launches in {run['steps']}"
+                                 f" steps of {layers} layers")
+        if srv.replays != run["windows"]:
+            raise AssertionError(f"{srv.replays} graph replays in "
+                                 f"{run['windows']} windows, want one each")
+        return results, run, starts
+
+    def traced_kernels(label, run):
+        traced = {k: h["launches"]
+                  for k, h in run["trace"]["hades_kernels"].items()}
+        if any(n * run["windows"] != 2 * run["launches"][k]
+               for k, n in traced.items()):
+            raise AssertionError(
+                f"{label}: {traced} kernels in 2 traced windows do not "
+                f"scale to the {run['windows']} windows' launch counts "
+                f"{run['launches']}")
+
+    srv = Server(model, ServerConfig(**SERVE))
+    _, graph, starts = graph_run(srv, params, f"{arch} graph")
+    graph["trace"] = trace_serve(srv, params, reqs, starts)
+    traced_kernels("graph", graph)
+    del srv
+
+    # op by op a step is host-bound, its wall proportional to the layers
+    cut = _cut(arch, layers=EAGER_LAYERS)
+    cut_params = dict(params, layers=params["layers"][:EAGER_LAYERS])
+    srv = Server(Model(cut, device="cuda"), ServerConfig(**SERVE))
+    label = f"{arch} {EAGER_LAYERS} layers"
+    results, cut_graph, _ = graph_run(srv, cut_params, f"{label} graph")
     tokens = [r.tokens for r in results]
     final = {k: v.clone() for k, v in _flat(srv.state).items()}
-    graph["trace"] = trace_serve(srv, params, reqs, starts)
-
     srv._eager = True
-    results, eager, starts = _serve_run(srv, params, reqs, f"{arch} eager")
+    results, eager, starts = _serve_run(srv, cut_params, reqs,
+                                        f"{label} eager")
     if srv.replays:
         raise AssertionError("the eager serve replayed a graph")
     if [r.tokens for r in results] != tokens:
@@ -1314,36 +1414,33 @@ def serve_full(dev, arch="chatglm3-6b"):
             raise AssertionError(f"final pool metadata differs at {k}")
     data_err = (final["pool/data"].float()
                 - flat["pool/data"].float()).abs().max().item()
-    eager["trace"] = trace_serve(srv, params, reqs, starts, by_origin=True)
+    eager["trace"] = trace_serve(srv, cut_params, reqs, starts,
+                                 by_origin=True)
     srv._eager = False
     # the graph run's counts are added per replay from what its capture
     # recorded: they must be the eager run's, counted at the wrappers, and
-    # the kernels that each run's trace found in two windows, per window
+    # the kernels that the eager run's trace found in two windows, per
+    # window
     for key in ("launches", "paged_attention_variants"):
-        if graph[key] != eager[key]:
-            raise AssertionError(f"{key}: graph {graph[key]} vs eager "
+        if cut_graph[key] != eager[key]:
+            raise AssertionError(f"{key}: graph {cut_graph[key]} vs eager "
                                  f"{eager[key]}")
-    for label, run in (("graph", graph), ("eager", eager)):
-        traced = {k: h["launches"]
-                  for k, h in run["trace"]["hades_kernels"].items()}
-        if any(n * run["windows"] != 2 * run["launches"][k]
-               for k, n in traced.items()):
-            raise AssertionError(
-                f"{label}: {traced} kernels in 2 traced windows do not "
-                f"scale to the {run['windows']} windows' launch counts "
-                f"{run['launches']}")
-    log(f"{arch} serve graph vs eager: tokens, final pool metadata and launch "
-        f"counts identical, the traced kernels per window times the windows "
-        f"equal to the counts, pool data max |err| {data_err:.3g}; wall {graph['ms_per_step']:.2f}"
-        f" vs {eager['ms_per_step']:.2f} ms/step, {graph['tok_per_s']:.1f} vs "
-        f"{eager['tok_per_s']:.1f} tok/s")
+    traced_kernels("eager", eager)
+    log(f"{label} serve graph vs eager: tokens, final pool metadata and "
+        f"launch counts identical, the traced kernels per window times the "
+        f"windows equal to the counts, pool data max |err| {data_err:.3g}; "
+        f"wall {cut_graph['ms_per_step']:.2f} vs {eager['ms_per_step']:.2f} "
+        f"ms/step, {cut_graph['tok_per_s']:.1f} vs {eager['tok_per_s']:.1f} "
+        "tok/s")
     summary = dict(graph, layers=cfg.num_layers, params=n_params,
-                   eager=eager,
-                   graph_vs_eager=dict(tokens_identical=True,
+                   eager=dict(eager, layers=EAGER_LAYERS),
+                   graph_at_eager_depth=cut_graph,
+                   graph_vs_eager=dict(layers=EAGER_LAYERS,
+                                       tokens_identical=True,
                                        metadata_identical=True,
                                        pool_data_max_abs_err=data_err))
     launches, steps = graph["launches"], graph["steps"]
-    del params, srv, final
+    del params, cut_params, srv, final
     torch.cuda.empty_cache()
     return launches, summary, steps
 
@@ -1389,7 +1486,9 @@ LABELLED = {
     "repro_torch.core.policy": ("update",),
     "repro_torch.runtime.sampling": ("sample",),
     "repro_torch.kernels.ops": ("paged_attention", "access_scan", "migrate",
-                                "flash_attention", "mamba_scan"),
+                                "flash_attention", "mamba_scan",
+                                "mamba_scan_bwd"),
+    "repro_torch.optim.adamw": ("adamw_update",),
 }
 
 
@@ -2924,6 +3023,399 @@ def hybrid_path(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training (zamba2-2.7b whole; kernel gradients, remat, resume)
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6   # (a)
+REMAT_CUT, REMAT_S = 4, 2048                 # (c): chatglm3-6b's 4 of 28
+RESUME_S = 256                               # (d): zamba2-2.7b reduced
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms(True) inside (cuBLAS's
+    workspace is pinned by CUBLAS_WORKSPACE_CONFIG, which `main` sets
+    before CUDA starts)."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _trainer(model, b, s, steps, ckpt_dir, ckpt_every=None):
+    """A `Trainer` of `model` on `TokenPipeline(seed=0)` batches of b x s,
+    AdamW as `launch/train.py` builds it for `steps`, every step logged,
+    and no checkpoint before the run's end unless `ckpt_every`."""
+    from repro_torch.data.lm import DataConfig
+    from repro_torch.launch.train import opt_config
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    return Trainer(model, DataConfig(vocab_size=model.cfg.vocab_size,
+                                     seq_len=s, global_batch=b, seed=0),
+                   opt_config(3e-4, steps),
+                   TrainerConfig(ckpt_dir=ckpt_dir, log_every=1,
+                                 ckpt_every=ckpt_every or steps + 1,
+                                 keep_last=steps))
+
+
+def _grads(model, params, batch):
+    """The loss and its gradient for every param leaf (requires_grad on
+    for the call only)."""
+    import torch
+    from repro_torch import tree as tree_lib
+    leaves = tree_lib.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = model.loss(params, batch)[0]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def _diff(ga, gb):
+    """(leaves that differ in dtype or value, largest |difference|) of two
+    lists of tensors."""
+    import torch
+    bad = [i for i, (x, y) in enumerate(zip(ga, gb))
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    err = max(((x.float() - y.float()).abs().max().item()
+               for x, y in zip(ga, gb)), default=0.0)
+    return bad, err
+
+
+def _train_origin(e) -> str:
+    """Where the device work of a host op of a train step comes from: the
+    outermost labelled port function of the forward pass, "recompute:
+    <function>" for the same under the backward pass (a checkpointed
+    group run again), "backward: mamba_scan_bwd" for the backward kernel's
+    wrapper, "backward" for autograd's own ops, "?" outside all of them
+    (the loss's log-softmax and gather)."""
+    port, bwd, op = [], False, e
+    while op is not None:
+        if op.name in _LABELS:
+            port.insert(0, op.name)
+        elif op.name.startswith("autograd::engine::evaluate_function"):
+            bwd = True
+        op = op.cpu_parent
+    if "ops.mamba_scan_bwd" in port:
+        return "backward: ops.mamba_scan_bwd"
+    if bwd:
+        return f"recompute: {port[0]}" if port else "backward"
+    return port[0] if port else "?"
+
+
+def profile_train_step(tr, params, opt, step, want):
+    """One more `train_step` under torch.profiler with the port's functions
+    labelled (`_labelled`): its wall, the device's busy and idle share,
+    the launches of each port kernel (exactly `want`) and of its device
+    kernel in the trace, and the device time by where it comes from
+    (`_train_origin`). A trace that is not whole is taken again (each
+    take is one more step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    cpu_t = torch.autograd.DeviceType.CPU
+    batch = tr.data.batch_at(step)
+    for attempt in range(1, PROFILES + 1):
+        ops.reset_launches()
+        with _labelled(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            open_trace()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            close_trace()
+        launches = dict(ops.launches)
+        events, ok = trace_events(prof)
+        dev_ev = [e for e in events if e.device_type != cpu_t
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.name not in _LABELS]
+        seen = {k: sum(k in e.name for e in dev_ev)
+                for k in ("mamba_scan_kernel", "mamba_scan_bwd_kernel")}
+        if ok:
+            break
+        log(f"train step trace {attempt} of at most {PROFILES} lost spin "
+            "kernels of its own; profiling another step")
+    _only(launches, want)
+    if seen != {"mamba_scan_kernel": want["mamba_scan"],
+                "mamba_scan_bwd_kernel": want["mamba_scan_bwd"]}:
+        raise AssertionError(f"the profiled step ran {seen}, want {want}")
+    busy_us = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in dev_ev])
+    by_fn = collections.defaultdict(float)
+    for e in events:
+        if e.device_type != cpu_t or not (e.name.startswith("aten::")
+                                          or e.name in _LABELS):
+            continue
+        for k in getattr(e, "kernels", None) or ():
+            by_fn[_train_origin(e)] += k.duration / 1e3
+    total = sum(by_fn.values())
+    res = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+               device_idle_share=1 - busy_us / 1e3 / wall_ms,
+               device_kernels=len(dev_ev), launches=launches,
+               kernels_in_trace=seen, attributed_ms=total,
+               by_origin_ms=dict(sorted(by_fn.items(),
+                                        key=lambda kv: -kv[1])))
+    log(f"profiled train step: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms (idle share {res['device_idle_share']:.5f}"
+        f"), {len(dev_ev)} device records, launches {launches}, in the "
+        f"trace {seen}; device time by origin ({total:.1f} ms attributed): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["by_origin_ms"].items()))
+    return res
+
+
+def train_full(dev):
+    """(a) zamba2-2.7b at full width and depth, bf16, remat="full",
+    attn_impl="blockwise": TRAIN_STEPS steps of `Trainer.run` on B x S =
+    TRAIN_B x TRAIN_S tokens (B=1 if B=2 runs out of memory: the cut is
+    listed), every loss and grad norm finite, exactly 90 mamba_scan
+    launches (45 forward, 45 recompute) and 45 mamba_scan_bwd a step and
+    nothing else; ms a step (median of steps 2 on), train tok/s, peak
+    memory, the final save's time; then one profiled step."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    cfg = _cut("zamba2-2.7b")
+    model = Model(cfg, attn_impl="blockwise", remat="full", device="cuda")
+    n_ssm = _n_blocks(cfg, "ssm")
+    want = {"mamba_scan": 2 * n_ssm, "mamba_scan_bwd": n_ssm}
+    cut = None
+    for b in (TRAIN_B, 1):
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        tr = _trainer(model, b, TRAIN_S, TRAIN_STEPS, ckpt_dir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = tr.run(params, TRAIN_STEPS)
+        except torch.cuda.OutOfMemoryError as e:
+            if b == 1:
+                raise
+            cut = f"B={b} ran out of device memory ({str(e)[:120]}): B=1"
+            log(f"train (a): {cut}")
+            del params, tr
+            torch.cuda.empty_cache()
+            continue
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        run_s = time.perf_counter() - t0
+        break
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    mem = torch.cuda.memory_stats()
+    hist = [m for _, m in out["history"]]
+    steps_ms = [m["step_time_s"] * 1e3 for m in hist]
+    ms = float(np.median(steps_ms[1:]))
+    res = dict(batch=b, seq_len=TRAIN_S, steps=TRAIN_STEPS, cut=cut,
+               params=sum(p.numel() for p in _leaves(out["params"])),
+               losses=[m["loss"] for m in hist],
+               grad_norms=[m["grad_norm"] for m in hist],
+               lrs=[m["lr"] for m in hist], step_ms=steps_ms,
+               ms_per_step=ms, train_tok_per_s=b * TRAIN_S / ms * 1e3,
+               run_s=run_s, final_save_s=run_s - sum(steps_ms) / 1e3,
+               peak_device_bytes=peak, launches=launches,
+               stragglers=out["stragglers"],
+               alloc_retries=mem.get("num_alloc_retries", 0),
+               launches_per_step={k: v / TRAIN_STEPS
+                                  for k, v in launches.items() if v})
+    log(f"train (a): {cfg.name} full width and depth, "
+        f"{res['params'] / 1e9:.3f} B params bf16, B={b} x S={TRAIN_S}, "
+        "remat full: losses "
+        f"{[round(x, 4) for x in res['losses']]}, grad norms "
+        f"{[round(x, 3) for x in res['grad_norms']]}, step ms "
+        f"{[round(x, 1) for x in steps_ms]}: {ms:.1f} ms a step, "
+        f"{res['train_tok_per_s']:.0f} train tok/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; run {run_s:.1f} s of which the final save "
+        f"{res['final_save_s']:.1f} s; stragglers (step, s, ewma s) "
+        f"{res['stragglers']}, allocator retries {res['alloc_retries']}; "
+        f"launches {launches}")
+    _only(launches, {k: v * TRAIN_STEPS for k, v in want.items()})
+    if not all(np.isfinite(res["losses"] + res["grad_norms"])):
+        raise AssertionError("a loss or grad norm is not finite")
+    res["profiled"] = profile_train_step(tr, out["params"], out["opt"],
+                                         TRAIN_STEPS, want)
+    del out, params, tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_kernel_vs_plain(dev):
+    """(b) zamba2-2.7b at full width and 12 layers (two groups), float32
+    (TF32 off), remat="full", B=2 x S=4096: every leaf's gradient through
+    the scan kernels against the same step with `ops.mamba_scan` patched
+    to `ref.mamba_scan` (autograd through its loop), under deterministic
+    algorithms: bit for bit, since the backward kernel equals autograd
+    through the loop bit for bit and every other op is the same
+    deterministic call."""
+    import torch
+    from repro_torch.data.lm import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _cut("zamba2-2.7b", layers=HYBRID_CUT, dtype="float32")
+    model = Model(cfg, remat="full", device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B),
+                          device=dev).batch_at(0)
+    n_ssm = _n_blocks(cfg, "ssm")
+    with deterministic():
+        ops.reset_launches()
+        loss_k, g_k = _grads(model, params, batch)
+        launches = dict(ops.launches)
+        with mock.patch.object(ops, "mamba_scan", ref.mamba_scan):
+            loss_p, g_p = _grads(model, params, batch)
+        torch.cuda.synchronize()
+    bad, err = _diff(g_k, g_p)
+    top = max(g.abs().max().item() for g in g_p)
+    res = dict(layers=cfg.num_layers, leaves=len(g_k), leaves_differing=len(
+        bad), max_abs_err=err, max_abs_grad=top, loss_kernel=loss_k.item(),
+        loss_plain=loss_p.item(), launches=launches)
+    log(f"train (b): {cfg.name} {cfg.num_layers} blocks fp32, B={TRAIN_B} "
+        f"x S={TRAIN_S}: gradients of {len(g_k)} leaves through the kernels "
+        f"vs the plain scan: {len(bad)} differ, max |err| {err:.3g} (max "
+        f"|g| {top:.3g}); loss {res['loss_kernel']!r} vs "
+        f"{res['loss_plain']!r}; launches {launches}")
+    _only(launches, {"mamba_scan": 2 * n_ssm, "mamba_scan_bwd": n_ssm})
+    if bad or loss_k.item() != loss_p.item():
+        raise AssertionError(f"kernel gradients differ from the plain "
+                             f"ones: {res}")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_remat(dev):
+    """(c) chatglm3-6b at full width, 4 of 28 layers, bf16, B=2 x
+    S=2048: one step's gradients under remat "none", "full" and "dots"
+    from the same params and batch under deterministic algorithms, bit for
+    bit equal; then three `Trainer` steps (remat "dots") with finite
+    losses."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data.lm import DataConfig, TokenPipeline
+    from repro_torch.models.model import Model
+    cfg = _cut("chatglm3-6b", layers=REMAT_CUT)
+    params = Model(cfg, device="cuda").init(
+        torch.Generator(device=dev).manual_seed(2))
+    batch = None
+    grads, walls, peaks = {}, {}, {}
+    with deterministic():
+        for remat in ("none", "full", "dots"):
+            model = Model(cfg, remat=remat, device="cuda")
+            batch = batch or TokenPipeline(
+                DataConfig(cfg.vocab_size, REMAT_S, TRAIN_B),
+                device=dev).batch_at(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            grads[remat] = _grads(model, params, batch)
+            torch.cuda.synchronize()
+            walls[remat] = (time.perf_counter() - t0) * 1e3
+            peaks[remat] = torch.cuda.max_memory_allocated()
+    diffs = {r: _diff(grads["none"][1], grads[r][1]) for r in ("full",
+                                                                "dots")}
+    same_loss = all(grads[r][0].item() == grads["none"][0].item()
+                    for r in grads)
+    log(f"train (c): {cfg.name} {cfg.num_layers} layers bf16, B={TRAIN_B} x "
+        f"S={REMAT_S}: leaves differing from remat none: "
+        + ", ".join(f"{r} {len(b)} (max |err| {e:.3g})"
+                    for r, (b, e) in diffs.items())
+        + f"; loss and gradient ms {walls}; peak GiB "
+        f"{ {r: round(p / 2**30, 2) for r, p in peaks.items()} }")
+    if not same_loss or any(b for b, _ in diffs.values()):
+        raise AssertionError(f"remat policies disagree: {diffs}")
+    del grads
+    model = Model(cfg, remat="dots", device="cuda")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    try:
+        out = _trainer(model, TRAIN_B, REMAT_S, 3, ckpt_dir).run(params, 3)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [m["loss"] for _, m in out["history"]]
+    log(f"train (c): three Trainer steps (remat dots): losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(m['step_time_s'] * 1e3, 1) for _, m in out['history']]}")
+    if len(losses) != 3 or not np.isfinite(losses).all():
+        raise AssertionError(f"Trainer losses {losses}")
+    del out, params
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, seq_len=REMAT_S, grad_ms=walls,
+                peak_device_bytes=peaks,
+                leaves_differing={r: len(b) for r, (b, _) in diffs.items()},
+                trainer_losses=losses)
+
+
+def train_resume(dev):
+    """(d) zamba2-2.7b reduced (bf16, remat "full", B=2 x S=256) under
+    deterministic algorithms: 6 `Trainer` steps with ckpt_every=3; a fresh
+    Trainer given only step 3's checkpoint resumes there and replays
+    steps 4-6: the same losses and the same final params and optimizer
+    state, bit for bit."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    model = Model(get_config("zamba2-2.7b", reduced=True), remat="full",
+                  device="cuda")
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    a, b = os.path.join(root, "a"), os.path.join(root, "b")
+    try:
+        with deterministic():
+            whole = _trainer(model, TRAIN_B, RESUME_S, 6, a, 3).run(
+                model.init(torch.Generator(device=dev).manual_seed(0)), 6)
+            os.makedirs(b)
+            shutil.copytree(os.path.join(a, "step_3"),
+                            os.path.join(b, "step_3"))
+            resumed = _trainer(model, TRAIN_B, RESUME_S, 6, b, 3).run(
+                model.init(torch.Generator(device=dev).manual_seed(9)), 6)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = [m["loss"] for _, m in whole["history"][3:]]
+    got = [m["loss"] for _, m in resumed["history"]]
+    bad_p, err = _diff(tree_lib.leaves(whole["params"]),
+                       tree_lib.leaves(resumed["params"]))
+    bad_o, _ = _diff(tree_lib.leaves(whole["opt"]),
+                     tree_lib.leaves(resumed["opt"]))
+    log(f"train (d): resumed from step 3: steps "
+        f"{[s for s, _ in resumed['history']]} losses {got} (whole run "
+        f"{want}); params differing {len(bad_p)} (max |err| {err:.3g}), "
+        f"optimizer leaves differing {len(bad_o)}")
+    if got != want or bad_p or bad_o or             [s for s, _ in resumed["history"]] != [4, 5, 6]:
+        raise AssertionError("the resumed run does not replay the whole one")
+    return dict(losses=got, params_differing=len(bad_p),
+                opt_differing=len(bad_o))
+
+
+def train_path(dev):
+    """Phase 12: (a) `train_full`, (b) `train_kernel_vs_plain`, (c)
+    `train_remat`, (d) `train_resume`."""
+    t = [time.perf_counter()]
+    res = {}
+    for key, fn in (("full", train_full), ("kernel_vs_plain",
+                                           train_kernel_vs_plain),
+                    ("remat", train_remat), ("resume", train_resume)):
+        res[key] = fn(dev)
+        t.append(time.perf_counter())
+    log("phase 12 " + ", ".join(f"({k}) {t[i + 1] - t[i]:.1f} s"
+                                for i, k in enumerate("abcd")))
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
@@ -2944,7 +3436,14 @@ def main(argv=None) -> int:
                       help="run phases 1, 2, phase 3's flash_attention and "
                       "mamba_scan checks and phase 11 only, and print no "
                       "result line")
+    only.add_argument("--train-only", action="store_true",
+                      help="run phases 1, 2, phase 3's mamba_scan checks "
+                      "and phase 12 only, and print no result line")
     args = ap.parse_args(argv)
+    # phase 12 runs under deterministic algorithms, whose cuBLAS needs a
+    # fixed workspace, set before CUDA starts (the size PyTorch picks by
+    # default on Hopper)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3014,6 +3513,15 @@ def main(argv=None) -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, "
             "part of 3, 11 only: no result line)")
         return 0
+    if args.train_only:
+        stamp(3)
+        check_mamba_scan(dev, get_config("falcon-mamba-7b"), zb)
+        stamp(12)
+        train = train_path(dev)
+        log(json.dumps(train, default=str))
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, "
+            "part of 3, 12 only: no result line)")
+        return 0
     stamp(3)
     kernels = {
         "paged_attention": check_paged_attention(dev, mc, kv_cfg, pcfg,
@@ -3044,16 +3552,23 @@ def main(argv=None) -> int:
     engine = engine_path(dev, engine_kernels)
     stamp(11)
     hybrid = hybrid_path(dev)
+    stamp(12)
+    train = train_path(dev)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
     main_launches["flash_attention"] = \
         prefill_summary["launches"]["flash_attention"]
     main_launches["mamba_scan"] = mamba["prefill"]["launches"]["mamba_scan"]
+    main_launches["mamba_scan_bwd"] = \
+        train["full"]["launches"]["mamba_scan_bwd"]
+    # the backward kernel's row: its own source entry, in mamba_scan.cu
+    kernels["mamba_scan_bwd"] = kernels["mamba_scan"].pop("bwd")
 
     rows = []
     for kname, k in kernels.items():
         row = {"name": kname, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+               "source": "src/repro_torch/kernels/csrc/"
+                         f"{KERNEL_SOURCE.get(kname, kname)}.cu",
                "replaces": TPU_KERNEL[kname],
                "launches": main_launches[kname],
                **{key: k[key] for key in (
@@ -3067,6 +3582,21 @@ def main(argv=None) -> int:
                 "plain_ms", "bound_ms", "library_ms", "library_device_ms")}
             row["olmoe"]["launches"] = olmoe["launches"].get(
                 kname, olmoe["flash_launches_per_prefill"])
+        if kname == "mamba_scan_bwd":
+            # at zamba2-2.7b's carry, which phase 12 (a) trains: launches
+            # a train step; and the forward's launches there
+            row["replaces_note"] = (
+                "the gradient of mamba_scan_pallas, which has none: JAX "
+                "does not differentiate it")
+            z = k["zamba2"]
+            row["zamba2"] = {key: z.get(key) for key in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "plain_device_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")}
+            row["zamba2"]["launches_per_train_step"] = \
+                train["full"]["launches_per_step"]["mamba_scan_bwd"]
+            row["zamba2"]["forward_launches_per_train_step"] = \
+                train["full"]["launches_per_step"]["mamba_scan"]
         if kname in ("flash_attention", "mamba_scan"):
             # at zamba2-2.7b's shapes, which phase 11 runs: launches a
             # prefill (and a decode step)
@@ -3135,7 +3665,7 @@ def main(argv=None) -> int:
         "launches_per_step": {k: launches[k] / steps for k in HADES_KERNELS},
         "prefill": prefill_summary, "kernel_vs_plain": path,
         "falcon_mamba": mamba, "olmoe": olmoe, "engine": engine,
-        "zamba2": hybrid,
+        "zamba2": hybrid, "train": train,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,10 +1,11 @@
 """Convert the JAX package's parameter pytree into the port's parameters
-(`from_jax`), and a JAX pool state into the port's (`pool_from_jax`), so
-that both packages compute the same function, or continue the same run,
-in the tests.
+(`from_jax`), its AdamW state into the port's (`opt_from_jax`), and a JAX
+pool state into the port's (`pool_from_jax`), so that both packages
+compute the same function, or continue the same run, in the tests.
 
 Input: the JAX params with every leaf already a numpy array (for example
-`jax.tree.map(np.asarray, params)`). JAX stacks the per-layer dicts on a
+`jax.tree.map(np.asarray, params)`), or a tensor (as the port's
+`checkpoint.ckpt.restore` returns a JAX checkpoint's leaves). JAX stacks the per-layer dicts on a
 leading [L] axis (its layers run under `vmap`/`scan`), and a hybrid
 model's mamba2 blocks on two, [G, per]; the port keeps one dict per layer
 (per group, a list of one dict per block). Matrices keep the JAX layout
@@ -18,6 +19,8 @@ import torch
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True).contiguous()
     a = np.array(a, order="C")       # a contiguous copy; 0-d stays 0-d
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)) \
@@ -58,6 +61,15 @@ def from_jax(params: dict, device="cpu") -> dict:
         out["mamba"] = [_unstack(g) for g in
                         _unstack(_convert(params["mamba"], device))]
     return out
+
+
+def opt_from_jax(state: dict, device="cpu") -> dict:
+    """JAX's AdamW state {"m", "v": trees in the params' layout, "step"}
+    (numpy or tensor leaves) -> the port's: m and v converted as
+    `from_jax` converts params, step a 0-d int32 tensor."""
+    return {"m": from_jax(state["m"], device),
+            "v": from_jax(state["v"], device),
+            "step": _tensor(state["step"], device).to(torch.int32)}
 
 
 def _leaf(a: np.ndarray, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in `csrc/` and load them with ctypes.
 
-Each `csrc/<name>.cu` has a plain C interface (one entry point, `name`)
-and is compiled on its own with `nvcc` for `sm_90a` into
+Each `csrc/<name>.cu` has a plain C interface (an entry point `name`, and
+in `mamba_scan.cu` also `mamba_scan_bwd`: `ENTRIES`) and is compiled on
+its own with `nvcc` for `sm_90a` into
 `build/kernels/<name>-<digest>.so` under the repository root (the digest
 covers the source and the flags, so an edited source is rebuilt).
 `build_all` starts one `nvcc` per source that is not built yet, all at
@@ -41,9 +42,13 @@ _ARGTYPES = {
                               ctypes.POINTER(ctypes.c_longlong),
                               ctypes.c_float, _I, _I, _P),
     "mamba_scan": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
+    "mamba_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       ctypes.c_longlong, _I, _P),
 }
+# the source of each C entry point that is not named after its own
+ENTRIES = {"mamba_scan_bwd": "mamba_scan"}
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}     # by source
 ptxas_logs: Dict[str, str] = {}
 
 
@@ -96,16 +101,20 @@ def build_all() -> Dict[str, str]:
     return dict(ptxas_logs)
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it first if needed."""
+def lib(entry: str) -> ctypes.CDLL:
+    """The loaded library that holds C entry point `entry`, its argument
+    types set, building the library first if needed."""
+    name = ENTRIES.get(entry, entry)
     if name not in _libs:
         if not _target(name).exists():
             build_all()
         so = ctypes.CDLL(str(_target(name)))
-        fn = getattr(so, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
         so.error_string.argtypes = (ctypes.c_int,)
         so.error_string.restype = ctypes.c_char_p
         _libs[name] = so
-    return _libs[name]
+    so = _libs[name]
+    fn = getattr(so, entry)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
+    return so

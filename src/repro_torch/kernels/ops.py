@@ -9,6 +9,11 @@ its kernel on the current stream (building it at first use, see
 count in `launches`. Empty inputs return before the C entry point, which
 therefore launches on every call. There is no fallback: a kernel that does
 not build or launch raises.
+
+`mamba_scan` is differentiable: its backward is the kernel
+`mamba_scan_bwd` (`_MambaScan`). `flash_attention` and `paged_attention`
+have no gradient, as their TPU kernels have none: on every device they
+raise when grad mode is on and an input requires grad.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from repro_torch.kernels import ref
 # variants
 launches: Dict[str, int] = {name: 0 for name in (
     "paged_attention", "access_scan", "migrate", "flash_attention",
-    "mamba_scan")}
+    "mamba_scan", "mamba_scan_bwd")}
 # flash_attention's and paged_attention's launches by variant (see
 # `_flash_variant`, `_paged_variant`)
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
@@ -85,6 +90,15 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Kernels without a gradient (nor had their TPU kernels one) refuse,
+    on every device, an input that requires grad while grad mode is on."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no gradient, as in the JAX package: train with "
+            "attn_impl='blockwise' (or 'full')")
 
 
 def _launch(name: str, *args, entry: str = "") -> None:
@@ -328,6 +342,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     kernel merges them and writes the access bits; one launch counted.
     No host sync, and a launch shape that depends on shapes only, so the
     call can be captured in a CUDA graph."""
+    _no_grad("paged_attention", q, k_pages, v_pages)
     if _on_cpu(q, k_pages, v_pages, block_tables, seq_lens):
         return ref.paged_attention(q, k_pages, v_pages, block_tables,
                                    seq_lens)
@@ -424,6 +439,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(kv > 0 and h % kv == 0, "H must be a multiple of KV")
     _check(s <= 128 or s % 128 == 0,
            f"S={s}: the flash kernel takes S <= 128 or a multiple of 128")
+    _no_grad("flash_attention", q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     _check(q.dtype in _DTYPES and k.dtype == v.dtype == q.dtype,
@@ -452,12 +468,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # mamba_scan
 # ---------------------------------------------------------------------------
-def mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """h_t = a_t * h_{t-1} + b_t per lane. a, b: [B, S, C, N] contiguous,
-    one dtype, float32 or bfloat16; h0: [B, C, N] contiguous float32.
-    Returns (h_all [B, S, C, N] fp32, h_last [B, C, N] fp32), bit for bit
-    the plain version's."""
+def _mamba_scan_fwd(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_cpu(a, b, h0):
         return ref.mamba_scan(a, b, h0)
     _check(a.dim() == 4 and a.shape == b.shape, "a/b: [B, S, C, N]")
@@ -476,3 +488,64 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
             h_all.data_ptr(), h_last.data_ptr(), bsz, s, c * n,
             _DTYPES[a.dtype], _stream())
     return h_all, h_last
+
+
+def mamba_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h_all: torch.Tensor,
+                   dh_all: torch.Tensor, dh_last: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `mamba_scan` (`ref.mamba_scan_bwd` says what it
+    computes): a [B, S, C, N] float32 or bfloat16 and h0 [B, C, N] float32,
+    contiguous, as the forward took them; h_all its output; dh_all, dh_last
+    the gradients of its outputs (float32, made contiguous here). Returns
+    (da, db) in a's dtype and dh0 float32, bit for bit the plain
+    version's. One launch of `mamba_scan_bwd_kernel`, which reads time
+    backwards in place."""
+    if _on_cpu(a, h0, h_all, dh_all, dh_last):
+        return ref.mamba_scan_bwd(a, h0, h_all, dh_all, dh_last)
+    _check(a.dim() == 4 and h_all.shape == dh_all.shape == a.shape,
+           "a/h_all/dh_all: [B, S, C, N]")
+    bsz, s, c, n = a.shape
+    _check(h0.shape == dh_last.shape == (bsz, c, n), "h0/dh_last: [B, C, N]")
+    _check(a.dtype in _DTYPES, "a must be float32 or bfloat16")
+    _check(h0.dtype == h_all.dtype == dh_all.dtype == dh_last.dtype
+           == torch.float32, "h0, h_all and the gradients must be float32")
+    _check(a.is_contiguous() and h0.is_contiguous()
+           and h_all.is_contiguous(), "a/h0/h_all must be contiguous")
+    dh_all, dh_last = dh_all.contiguous(), dh_last.contiguous()
+    da = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    db = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    dh0 = torch.empty(h0.shape, dtype=torch.float32, device=a.device)
+    if da.numel() == 0:
+        return da, db, dh0.copy_(dh_last)
+    _launch("mamba_scan_bwd", a.data_ptr(), h0.data_ptr(), h_all.data_ptr(),
+            dh_all.data_ptr(), dh_last.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dh0.data_ptr(), bsz, s, c * n, _DTYPES[a.dtype],
+            _stream())
+    return da, db, dh0
+
+
+class _MambaScan(torch.autograd.Function):
+    """mamba_scan with its gradient: the backward runs `mamba_scan_bwd`
+    (the kernel on CUDA, the plain loop on the CPU) from the saved a, h0
+    and h_all."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h_all, h_last = _mamba_scan_fwd(a, b, h0)
+        ctx.save_for_backward(a, h0, h_all)
+        return h_all, h_last
+
+    @staticmethod
+    def backward(ctx, dh_all, dh_last):
+        a, h0, h_all = ctx.saved_tensors
+        return mamba_scan_bwd(a, h0.float(), h_all, dh_all, dh_last)
+
+
+def mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t per lane. a, b: [B, S, C, N] contiguous,
+    one dtype, float32 or bfloat16; h0: [B, C, N] contiguous float32.
+    Returns (h_all [B, S, C, N] fp32, h_last [B, C, N] fp32), bit for bit
+    the plain version's. Differentiable in a, b and h0 (`_MambaScan`):
+    the gradient is bit for bit autograd's through the plain version."""
+    return _MambaScan.apply(a, b, h0)

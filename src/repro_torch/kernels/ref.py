@@ -162,3 +162,26 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
         h = a[:, t] * h + b[:, t]
         h_all[:, t] = h
     return h_all, h.clone()
+
+
+def mamba_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h_all: torch.Tensor,
+                   dh_all: torch.Tensor, dh_last: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `mamba_scan` (b shares a's dtype): given its inputs
+    a, h0, its output h_all and the gradients dh_all [B, S, C, N], dh_last
+    [B, C, N] of its two outputs, one reverse pass per lane with the
+    carry c (c = dh_last at t = S - 1, then a_{t+1} * g_{t+1}):
+    g_t = dh_t + c, da_t = g_t * h_{t-1} (h_{-1} = h0), db_t = g_t, and
+    dh0 = a_0 * g_0; each a rounded product or sum, never fused. That is
+    what autograd computes through the loop above, bit for bit. Returns
+    (da, db) in a's dtype and dh0 fp32."""
+    a32 = a.float()
+    c = dh_last.float()
+    da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    db = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in reversed(range(a.shape[1])):
+        g = dh_all[:, t] + c
+        da[:, t] = g * (h_all[:, t - 1] if t else h0)
+        db[:, t] = g
+        c = g * a32[:, t]
+    return da.to(a.dtype), db.to(a.dtype), c.clone()

@@ -1,1 +1,2 @@
-"""Launchers of the port: `serve`, the serving CLI."""
+"""Launchers of the port: `serve`, the serving CLI, and `train`, the
+training CLI."""

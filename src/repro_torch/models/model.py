@@ -3,7 +3,7 @@ for the dense and MoE decoders, the ssm family (falcon-mamba) and the
 hybrid family (zamba2: mamba2 blocks and a shared attention block)): the
 config, the device the weights live on, a seeded random init, and the
 step functions on the JAX package's batch dicts ({"tokens"} for forward /
-prefill, {"tokens", "labels"} for loss).
+prefill, {"tokens", "labels"} for loss, which the trainer differentiates).
 """
 from __future__ import annotations
 
@@ -18,15 +18,19 @@ from repro_torch.models import transformer as T
 
 class Model:
     """attn_impl: "full", "blockwise" or "flash" (the flash_attention
-    kernel) for the full-sequence paths of attention layers, the hybrid
-    family's shared block included (ssm layers ignore it and run the
-    mamba_scan kernel); remat takes only "none" here."""
+    kernel, which has no gradient: train with "blockwise") for the
+    full-sequence paths of attention layers, the hybrid family's shared
+    block included (ssm layers ignore it and run the mamba_scan kernel);
+    remat: "none", "full", "dots" or "everything" (`transformer.
+    _maybe_remat`), per layer and, in the hybrid family, per group."""
 
     def __init__(self, cfg: ModelConfig, attn_impl: str = "blockwise",
                  remat: str = "none", device: Optional[str] = None):
         if attn_impl not in T.ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in "
                              f"{T.ATTN_IMPLS}")
+        if remat not in T.REMAT_POLICIES:
+            raise ValueError(f"remat {remat!r} not in {T.REMAT_POLICIES}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.remat = remat

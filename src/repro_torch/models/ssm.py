@@ -219,13 +219,18 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128,
     da = dtc * a                                          # [B, NC, L, H]
     cum = torch.cumsum(da, dim=2)                         # within a chunk
     dtx = dtc[..., None] * xc                             # [B, NC, L, H, P]
-    # y_intra[l] = sum_{m <= l} (C_l . B_m) exp(cum_l - cum_m) dt_m x_m
-    seg = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    # y_intra[l] = sum_{m <= l} (C_l . B_m) exp(cum_l - cum_m) dt_m x_m.
+    # The mask goes on the exponent (-inf above the diagonal, where
+    # cum_l - cum_m > 0 can overflow exp), not on exp's output as in the
+    # JAX package: the same values, but a gradient that stays finite
+    # where JAX's is inf * 0 = nan
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=x.device))
-    seg = torch.where(causal[None, None, :, :, None], seg, 0.0)
+    seg = torch.exp(torch.where(causal[None, None, :, :, None],
+                                cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                                -math.inf))
     cb = torch.einsum("bzln,bzmn->bzlm", cc, bc)          # [B, NC, L, L]
-    seg.mul_(cb[..., None])                               # [B, NC, L, L, H]
+    seg = seg * cb[..., None]                             # [B, NC, L, L, H]
     del cb
     y_intra = torch.einsum("bzlmh,bzmhp->bzlhp", seg, dtx)
     del seg  # 335 MB at zamba2's prefill shape

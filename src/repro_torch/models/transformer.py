@@ -21,9 +21,11 @@ unstacks).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import Callable, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.configs.base import MAMBA1, MAMBA2, SHARED_ATTN
 from repro_torch.kernels import ops as kops
@@ -33,6 +35,31 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 ATTN_IMPLS = ("full", "blockwise", "flash")
+REMAT_POLICIES = ("none", "full", "dots", "everything")
+# the 2-D matrix products whose outputs the "dots" policy keeps (JAX's
+# checkpoint_dots_with_no_batch_dims: products without batch dimensions)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    """fn under a rematerialisation policy, JAX's `_maybe_remat`: "none"
+    and "everything" (autograd keeps every intermediate without a
+    checkpoint) run fn as it is; "full" keeps only fn's inputs and
+    recomputes the rest in the backward pass; "dots" also keeps the
+    outputs of fn's 2-D matrix products (`_DOTS`) and recomputes the rest.
+    Without grad mode nothing is kept, so fn runs as it is."""
+    if remat in ("none", "everything"):
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt_lib.create_selective_checkpoint_contexts, list(_DOTS))
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt_lib.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 def _normal(shape, scale: float, dtype, generator, device) -> torch.Tensor:
@@ -211,10 +238,8 @@ def _check_forward(cfg, remat: str, extra_embeds, enc_embeds) -> None:
     if extra_embeds is not None or enc_embeds is not None:
         raise NotImplementedError("extra_embeds / enc_embeds (vlm, "
                                   "encoder-decoder) are not ported")
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: rematerialisation belongs to the training "
-            "slice, not ported yet; the forward path takes 'none'")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
 
 
 def _head(params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -238,22 +263,26 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     [L, E] int32 (zeros, with E = 1, for a dense config); for the hybrid
     family only "moe_aux_loss" (0) and "expert_counts" [1] (zeros), JAX's
     keys there, and "kv_cache" None with `return_cache`. ssm layers
-    ignore `positions` and `attn_impl`."""
+    ignore `positions` and `attn_impl`. `remat` (`_maybe_remat`) applies
+    per layer, and for the hybrid family per group, as in JAX."""
     _check_forward(cfg, remat, extra_embeds, enc_embeds)
     _no_hiddens(cfg, return_hiddens)
     x = L.embed(params["embed"], tokens)
     if cfg.family == "ssm":
-        for lp in params["layers"]:
+        def ssm_body(h, lp):
             y, _ = ssm_lib.mamba1_forward(
-                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
-            x = x + y
+                lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
+            return h + y
+        ssm_body = _maybe_remat(ssm_body, remat)
+        for lp in params["layers"]:
+            x = ssm_body(x, lp)
         return _head(params, cfg, x), (
             {"kv_cache": None} if return_cache else {})
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if cfg.family == "hybrid":
-        x = _hybrid_forward(params, cfg, x, positions, attn_impl)
+        x = _hybrid_forward(params, cfg, x, positions, attn_impl, remat)
         aux = {"moe_aux_loss": torch.zeros((), device=x.device),
                "expert_counts": torch.zeros(1, dtype=torch.int32,
                                             device=x.device)}
@@ -261,9 +290,11 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
             aux["kv_cache"] = None
         return _head(params, cfg, x), aux
     kvs, hs, losses, counts = [], [], [], []
+    body = _maybe_remat(functools.partial(
+        attn_ffn_block, cfg=cfg, positions=positions, attn_impl=attn_impl),
+        remat)
     for lp in params["layers"]:
-        x, loss, kv, cnt = attn_ffn_block(lp, x, cfg, positions,
-                                          attn_impl=attn_impl)
+        x, loss, kv, cnt = body(lp, x)
         if return_cache:
             kvs.append(kv)
         if return_hiddens:
@@ -288,16 +319,20 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
 
 
 def _hybrid_forward(params: dict, cfg, x: torch.Tensor, positions,
-                    attn_impl: str) -> torch.Tensor:
+                    attn_impl: str, remat: str) -> torch.Tensor:
     """zamba2: each group's mamba2 blocks (x + mamba2(rms_norm(x))), then
-    the shared attention block, the same weights at every occurrence."""
-    for group in params["mamba"]:
+    the shared attention block, the same weights at every occurrence;
+    `remat` applies to a group as a whole."""
+    def group_body(h, group):
         for lp in group:
             y, _ = ssm_lib.mamba2_forward(
-                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
-            x = x + y
-        x = attn_ffn_block(params["shared_attn"], x, cfg, positions,
-                           attn_impl=attn_impl)[0]
+                lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
+            h = h + y
+        return attn_ffn_block(params["shared_attn"], h, cfg, positions,
+                              attn_impl=attn_impl)[0]
+    group_body = _maybe_remat(group_body, remat)
+    for group in params["mamba"]:
+        x = group_body(x, group)
     return x
 
 

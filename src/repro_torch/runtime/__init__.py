@@ -1,1 +1,2 @@
-"""Serving runtime of the port: in-window sampling and the decode server."""
+"""Runtimes of the port: in-window sampling, the decode server and the
+fault-tolerant trainer."""

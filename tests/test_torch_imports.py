@@ -34,7 +34,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.core.frontend", "repro_torch.core.page_util",
             "repro_torch.core.simheap", "repro_torch.core.graphs",
             "repro_torch.data.ycsb", "repro_torch.convert",
-            "repro_torch.device"} <= set(mods)
+            "repro_torch.device", "repro_torch.tree",
+            "repro_torch.optim.adamw", "repro_torch.data.lm",
+            "repro_torch.checkpoint.ckpt", "repro_torch.runtime.trainer",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
