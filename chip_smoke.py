@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--access-scan-was PATH] [--migrate-was PATH]
-                          [--engine-only | --hybrid-only | --train-only]
+                          [--engine-only | --hybrid-only | --train-only |
+                           --crest-only]
 
 Run from the root of a checkout (it puts `src` on sys.path itself). With
 --access-scan-was, phase 3 also builds an earlier `access_scan.cu` (its C
@@ -11,8 +12,8 @@ kernel; --migrate-was does the same for an earlier `migrate.cu` (its C
 entry without the work and scratch arguments) in phases 3 and 10.
 --engine-only runs phases 1, 2 and 10 alone, --hybrid-only phases 1, 2,
 phase 3's flash_attention and mamba_scan checks and phase 11, --train-only
-phases 1, 2, phase 3's mamba_scan checks and phase 12; none prints a
-result line. In order:
+phases 1, 2, phase 3's mamba_scan checks and phase 12, --crest-only
+phases 1, 2 and 13; none prints a result line. In order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port (`src/repro_torch/kernels/
@@ -200,7 +201,30 @@ result line. In order:
      B=2 x S=2048: the gradients under remat "none", "full" and "dots"
      bit for bit equal, then three Trainer steps with finite losses; (d)
      zamba2-2.7b reduced: a run resumed from step 3's checkpoint replays
-     steps 4-6 bit for bit (losses, params, optimizer state).
+     steps 4-6 bit for bit (losses, params, optimizer state);
+ 13. the paper's evaluation substrate, no kernel of its own: CrestKV over
+     SimHeap (placement on the host in numpy, the backend step on the card)
+     with the seeded data of the paper's benchmark scripts. (a) Table 1:
+     each of the ten structures at 60,000 keys under YCSB-A (12 ops a key,
+     a window of 3 x keys), as the baseline (`null`, no tidying) and as
+     HADES (`proactive`), each with the backend on the card and on the CPU:
+     identical runs (window logs, run statistics, value ids, the heap's
+     placement and page arrays); page-utilization gain, memory reduction
+     and overhead per structure; (b) fig 7: hash-pugh at 40,000 keys under
+     YCSB-C (60 ops a key), the free run and the six systems under a target
+     of 40 % of its footprint: every op counted, page utilization in (0, 1]
+     in every window; RSS share, slowdown and faults per system; (c)
+     hash-pugh under YCSB-C with `proactive` at the paper's 10 M keys, 40 M
+     ops in windows of 10 M: every op counted, live addresses inside their
+     heaps and disjoint, page utilization in (0, 1] and RSS within the
+     heaps' footprint in every window; load and window seconds,
+     backend_step's device ms, pages, RSS, the process's peak RSS; (d) the
+     tiered embedding at zamba2-2.7b's width (vocab 32000 x 2560 bf16, 4096
+     hot rows): 16 windows of `lookup` of B=2 x S=4096 `TokenPipeline`
+     tokens and `collect`, then `write_rows` of 64 rows, half hot,
+     identical on the card and the CPU; cold-hit rate and coverage per
+     window, ms per call, and bench_embedding.py's steady cold-hit rates at
+     hot fractions 0.01, 0.05 and 0.25.
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
 is not run from a checkout, or if any phase fails. The last lines of its
@@ -3416,6 +3440,412 @@ def train_path(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's evaluation substrate (CrestKV over SimHeap, the ten
+# Table-1 structures) and the tiered embedding
+# ---------------------------------------------------------------------------
+TABLE1_KEYS = 60_000          # benchmarks/table1_structures.py
+FIG7_KEYS = 40_000            # benchmarks/fig7_backends.py, --smoke
+# (c): the paper's 10 M keys (benchmarks/common.py FULL_N_KEYS); three
+# windows of 10 M ops (a window closes at the first 4096-op batch past it)
+FULL_KEYS, FULL_WINDOW_OPS, FULL_OPS = 10_000_000, 10_000_000, 40_000_000
+# (a) and (b)'s 47 short runs share a pool of worker processes; (c) runs
+# alone, so that its host seconds are its own
+CREST_WORKERS = 6
+EMB_ARCH, EMB_WINDOWS, EMB_WRITES = "zamba2-2.7b", 16, 64   # (d)
+EMB_B, EMB_S = 2, 4096
+CREST_ARRAYS = ("addr", "size", "heap", "access", "ciw", "atc", "resident",
+                "referenced", "evict")
+
+
+def steady(windows, key, tail=4):
+    """benchmarks/common.py's steady state: the mean over the last `tail`
+    windows."""
+    xs = [w[key] for w in windows[-tail:]]
+    return float(np.mean(xs)) if xs else float("nan")
+
+
+def _crest_digest(kv, stats) -> dict:
+    """A CrestKV run reduced to what the card and CPU comparison holds:
+    the run statistics, window logs and heap counters as they are, and the
+    value ids and the SimHeap's placement and page arrays as (dtype,
+    SHA-256) pairs."""
+    import hashlib
+    h = kv.heap
+    out = {k: getattr(stats, k) for k in ("windows", "ops", "total_ns",
+                                           "base_ns", "faults")}
+    out.update({k: getattr(h, k) for k in (
+        "window_log", "cursor", "live_bytes", "total_moves",
+        "ciw_threshold", "epoch")})
+    arrays = dict({k: getattr(h, k) for k in CREST_ARRAYS},
+                  value_obj=kv.value_obj)
+    out.update({k: (str(v.dtype), hashlib.sha256(
+        np.ascontiguousarray(v)).hexdigest()) for k, v in arrays.items()})
+    return out
+
+
+TABLE1_SYSTEMS = (("base", dict(backend="null", enabled=False)),
+                  ("hades", dict(backend="proactive", enabled=True)))
+
+
+def fig7_systems(target):
+    """fig7_backends.py's six systems under a target of `target` bytes."""
+    return {
+        "cgroup_cap": dict(backend="cap", enabled=False,
+                           hbm_target_bytes=target),
+        "kswapd_pressure": dict(backend="reactive", enabled=False,
+                                hbm_target_bytes=target),
+        "hades_reactive": dict(backend="reactive", enabled=True,
+                               hbm_target_bytes=target),
+        "hades_proactive": dict(backend="proactive", enabled=True),
+        "hades_mglru": dict(backend="mglru", enabled=True,
+                            hbm_target_bytes=target),
+        "hades_promote": dict(backend="promote", enabled=True,
+                              hbm_target_bytes=target),
+    }
+
+
+def _crest_job(structure, workload, n_keys, n_ops, dev, sim):
+    """One run of benchmarks/common.py's `run_crest` on the port (store
+    seed 0, key stream seed 1, a window of 3 x keys), in a worker process:
+    (stats, digest, host s)."""
+    from repro_torch.data.crestkv import CrestKV, default_sim_config
+    t0 = time.perf_counter()
+    kv = CrestKV(structure, n_keys, default_sim_config(n_keys, **sim),
+                 seed=0, device=dev)
+    stats = kv.run(workload, n_ops, window_ops=3 * n_keys, seed=1)
+    return stats, _crest_digest(kv, stats), time.perf_counter() - t0
+
+
+def crest_table1_fig7(dev):
+    """(a) Table 1: each structure under YCSB-A (12 ops a key) as the
+    baseline (`null`, no tidying) and as HADES (`proactive`), each with the
+    SimHeap's backend on the card and on the CPU: identical runs; the
+    numbers are table1_structures.py's, from the card's runs. (b) fig 7
+    at its smoke size: hash-pugh under YCSB-C (60 ops a key), the free run
+    and fig7_backends.py's six systems, the backend on the card, the
+    target at 40 % of the free run's footprint. Every run counts its ops
+    and keeps page utilization in (0, 1]. The 47 runs share a pool of
+    CREST_WORKERS processes."""
+    import multiprocessing
+    from repro_torch.data.structures import STRUCTURES
+    names, n, m = sorted(STRUCTURES), TABLE1_KEYS, FIG7_KEYS
+    card = str(dev)
+    with multiprocessing.get_context("spawn").Pool(CREST_WORKERS) as pool:
+        def run(*args):
+            return pool.apply_async(_crest_job, args)
+        free = run("hash-pugh", "C", m, 60 * m, card,
+                   dict(backend="null", enabled=False))
+        table1 = {(name, label, side): run(name, "A", n, 12 * n, d, sim)
+                  for name in names for label, sim in TABLE1_SYSTEMS
+                  for side, d in (("card", card), ("cpu", "cpu"))}
+        free = free.get()[0]
+        footprint = steady(free.windows, "rss_bytes")
+        target = int(footprint * 0.4)
+        fig7 = {name: run("hash-pugh", "C", m, 60 * m, card, sim)
+                for name, sim in fig7_systems(target).items()}
+        table1 = {k: v.get() for k, v in table1.items()}
+        fig7 = {k: v.get() for k, v in fig7.items()}
+    runs = [(k, v[0], 12 * n) for k, v in table1.items()] + \
+        [(k, v[0], 60 * m) for k, v in fig7.items()] + \
+        [("free_run", free, 60 * m)]
+    for what, stats, ops in runs:
+        if stats.ops != ops or not all(0 < w["page_utilization"] <= 1
+                                       for w in stats.windows):
+            raise AssertionError(f"phase 13 {what}: ops {stats.ops} of "
+                                 f"{ops} or page utilization out of (0, 1]")
+    rows = []
+    for name in names:
+        for label, _ in TABLE1_SYSTEMS:
+            got = table1[name, label, "card"][1]
+            want = table1[name, label, "cpu"][1]
+            bad = [k for k in want if got[k] != want[k]]
+            if bad:
+                raise AssertionError(f"phase 13 (a) {name} {label}: the "
+                                     f"card's run differs from the CPU's in "
+                                     f"{bad}")
+        base = table1[name, "base", "card"][0]
+        hades = table1[name, "hades", "card"][0]
+        r = dict(structure=name,
+                 pu_gain=steady(hades.windows, "page_utilization") /
+                 max(steady(base.windows, "page_utilization"), 1e-9),
+                 mem_reduction=1 - steady(hades.windows, "rss_bytes") /
+                 max(steady(base.windows, "rss_bytes"), 1.0),
+                 overhead=hades.overhead_frac, windows=len(hades.windows),
+                 card_equals_cpu=True,
+                 host_s={f"{label}_{side}": table1[name, label, side][2]
+                         for label, _ in TABLE1_SYSTEMS
+                         for side in ("card", "cpu")})
+        log("phase 13 (a) " + json.dumps(r))
+        rows.append(r)
+    systems = []
+    for name, (st, _, host_s) in fig7.items():
+        r = dict(system=name,
+                 rss_frac=steady(st.windows, "rss_bytes") / footprint,
+                 slowdown=st.mean_latency_ns / free.mean_latency_ns - 1,
+                 faults=st.faults, windows=len(st.windows), host_s=host_s)
+        log("phase 13 (b) " + json.dumps(r))
+        systems.append(r)
+    return rows, dict(footprint_bytes=footprint,
+                      target_frac=target / footprint,
+                      free_run_windows=len(free.windows), systems=systems)
+
+
+def _rss_bytes() -> int:
+    """This process's resident set now (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _no_overlap(h, dev) -> bool:
+    """Every live object inside its heap's range, and no two overlapping
+    (sorted on the card)."""
+    import torch
+    from repro_torch.core.simheap import ALIGN
+    live = np.nonzero(h.heap >= 0)[0]
+    addr = torch.from_numpy(h.addr[live]).to(dev)
+    size = torch.from_numpy((h.size[live] + ALIGN - 1) // ALIGN * ALIGN) \
+        .to(dev)
+    base = torch.tensor([h.base[k] for k in sorted(h.base)],
+                        device=dev)[torch.from_numpy(
+                            h.heap[live].astype(np.int64)).to(dev)]
+    inside = bool(((addr >= base) &
+                   (addr + size <= base + h.cfg.heap_bytes)).all())
+    addr, order = torch.sort(addr)
+    size = size[order]
+    return inside and bool((addr[1:] >= addr[:-1] + size[:-1]).all())
+
+
+def crest_full(dev):
+    """(c) the paper's scale: hash-pugh under YCSB-C with `proactive` at
+    FULL_KEYS keys, three windows of 10 M ops, the backend on the card;
+    alone, so its host seconds are its own. Gates: every op counted,
+    addresses inside their heaps and disjoint, and in every window page
+    utilization in (0, 1] and RSS at most the footprint (the pages under
+    the three heaps' cursors, where every resident page lies).
+    backend_step's span on the card from CUDA events around it (its
+    uploads from pageable memory wait for the host, so host time between
+    its copies counts too) beside its host seconds."""
+    import resource
+    import torch
+    from repro_torch.core.simheap import PAGE
+    rss0 = _rss_bytes()
+    peak0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    t0 = time.perf_counter()
+    from repro_torch.data.crestkv import CrestKV, default_sim_config
+    kv = CrestKV("hash-pugh", FULL_KEYS, default_sim_config(
+        FULL_KEYS, backend="proactive", enabled=True), seed=0, device=dev)
+    h = kv.heap
+    load_s = time.perf_counter() - t0
+    load = dict(rss_bytes=h.rss_bytes(), process_rss_bytes=_rss_bytes())
+    step, collect_s, step_s, win = h.backend_step, [], [], []
+    events = []
+
+    def timed_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        s0 = time.perf_counter()
+        ev[0].record()
+        step()
+        ev[1].record()
+        step_s.append(time.perf_counter() - s0)
+        events.append(ev)
+
+    collect = h.collect
+
+    def timed_collect():
+        c0 = time.perf_counter()
+        report = collect()
+        collect_s.append(time.perf_counter() - c0)
+        return report
+
+    marks = [time.perf_counter()]
+
+    def on_window(report):
+        marks.append(time.perf_counter())
+        footprint = PAGE * sum(
+            (h.base[k] + h.cursor[k]) // PAGE + 1 - h.base[k] // PAGE
+            for k in h.base)
+        win.append(dict(page_utilization=report["page_utilization"],
+                        rss_bytes=report["rss_bytes"],
+                        footprint_bytes=footprint,
+                        moved_to_hot=report.get("moved_to_hot"),
+                        moved_to_cold=report.get("moved_to_cold"),
+                        process_rss_bytes=_rss_bytes()))
+
+    with mock.patch.object(h, "backend_step", timed_step), \
+            mock.patch.object(h, "collect", timed_collect):
+        stats = kv.run("C", FULL_OPS, window_ops=FULL_WINDOW_OPS, seed=1,
+                       on_window=on_window)
+    run_s = time.perf_counter() - marks[0]
+    torch.cuda.synchronize()
+    for w, (a, b), c, bs, m0, m1 in zip(win, events, collect_s, step_s,
+                                        marks, marks[1:]):
+        w.update(host_s=m1 - m0, collect_s=c, backend_step_s=bs,
+                 backend_step_device_ms=a.elapsed_time(b))
+    t1 = time.perf_counter()
+    disjoint = _no_overlap(h, dev)
+    check_s = time.perf_counter() - t1
+    bad = [i for i, w in enumerate(win) if not (
+        0 < w["page_utilization"] <= 1 and
+        w["rss_bytes"] <= w["footprint_bytes"])]
+    if stats.ops != FULL_OPS or len(win) < 3 or bad or not disjoint:
+        raise AssertionError(
+            f"phase 13 (c): ops {stats.ops} of {FULL_OPS}, {len(win)} "
+            f"windows, windows out of bounds {bad}, addresses disjoint "
+            f"{disjoint}")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    res = dict(keys=FULL_KEYS, ops=stats.ops,
+               window_ops=FULL_WINDOW_OPS, objects=h.cfg.max_objects,
+               live_objects=int((h.heap >= 0).sum()),
+               pages_to_backend=h.n_pages, load_s=load_s, run_s=run_s,
+               check_s=check_s, load=load, windows=win,
+               overhead=stats.overhead_frac,
+               process_rss_before_bytes=rss0,
+               process_peak_rss_bytes=peak,
+               peak_is_this_phase=peak > peak0)
+    del kv, h
+    for w in win:
+        log("phase 13 (c) window " + json.dumps(w))
+    log("phase 13 (c) " + json.dumps({k: v for k, v in res.items()
+                                      if k != "windows"}))
+    return res
+
+
+def _emb_state_diff(a, b) -> list:
+    """The leaves of two embedding states (or reports) that differ."""
+    return _states_equal({k: v.cpu() for k, v in a.items()},
+                         {k: v.cpu() for k, v in b.items()})
+
+
+def embedding_run(dev):
+    """(d) the tiered embedding at zamba2-2.7b's width: vocab 32000 x 2560
+    bf16 (a seeded generator's table), its `embed_hot_rows` = 4096 hot
+    rows; EMB_WINDOWS windows, each one `lookup` of B=2 x S=4096 tokens of
+    `TokenPipeline(seed=0)` then `collect`, then `write_rows` of 64
+    distinct rows, half of them hot; on the card and on the CPU, every
+    output and state leaf identical. Then ms per lookup and per collect
+    (CUDA events)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import DataConfig, TokenPipeline
+    from repro_torch.models import embedding as emb
+    mc = get_config(EMB_ARCH)
+    cfg = emb.TieredEmbeddingConfig(vocab_size=mc.vocab_size,
+                                    d_model=mc.d_model,
+                                    hot_rows=mc.hades.embed_hot_rows)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, generator=torch.
+                        Generator().manual_seed(0)).to(torch.bfloat16)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=EMB_S,
+                      global_batch=EMB_B, seed=0)
+    pipes = {d: TokenPipeline(data, device=d) for d in (dev, "cpu")}
+    states = {d: emb.init(cfg, table.to(d)) for d in (dev, "cpu")}
+    windows, bad = [], []
+    for w in range(EMB_WINDOWS):
+        outs, looked, reps = {}, {}, {}
+        for d in (dev, "cpu"):
+            toks = pipes[d].batch_at(w)["tokens"]
+            outs[d], looked[d] = emb.lookup(cfg, states[d], toks)
+            states[d], reps[d] = emb.collect(cfg, looked[d])
+        if not torch.equal(outs[dev].cpu(), outs["cpu"]):
+            bad.append(f"window {w} embeddings")
+        bad += [f"window {w} after lookup {k}" for k in
+                _emb_state_diff(looked[dev], looked["cpu"])]
+        bad += [f"window {w} {k}" for k in
+                _emb_state_diff(states[dev], states["cpu"])]
+        bad += [f"window {w} report {k}" for k in
+                _emb_state_diff(reps[dev], reps["cpu"])]
+        windows.append({k: float(v) for k, v in reps[dev].items()})
+    rng = np.random.default_rng(0)
+    hot = states["cpu"]["hot_ids"].numpy()
+    cold = np.setdiff1d(np.arange(cfg.vocab_size), hot)
+    rows = rng.permutation(np.concatenate([
+        rng.choice(hot, EMB_WRITES // 2, replace=False),
+        rng.choice(cold, EMB_WRITES // 2, replace=False)]))
+    vals = torch.randn(EMB_WRITES, cfg.d_model, generator=torch.Generator()
+                       .manual_seed(1)).to(torch.bfloat16)
+    written = {d: emb.write_rows(states[d], torch.from_numpy(rows).to(d),
+                                 vals.to(d)) for d in (dev, "cpu")}
+    bad += [f"write_rows {k}" for k in
+            _emb_state_diff(written[dev], written["cpu"])]
+    if bad:
+        raise AssertionError(f"phase 13 (d): the card differs from the CPU "
+                             f"in {bad}")
+    s, toks = states[dev], pipes[dev].batch_at(0)["tokens"]
+    rows_d, vals_d = torch.from_numpy(rows).to(dev), vals.to(dev)
+    lookup_ms = cuda_time(lambda: emb.lookup(cfg, s, toks), 20)
+    collect_ms = cuda_time(lambda: emb.collect(cfg, s), 20)
+    write_ms = cuda_time(lambda: emb.write_rows(s, rows_d, vals_d), 20)
+    res = dict(vocab=cfg.vocab_size, d_model=cfg.d_model,
+               hot_rows=cfg.hot_rows, windows=windows,
+               card_equals_cpu=True, lookup_ms=lookup_ms,
+               collect_ms=collect_ms, write_rows_ms=write_ms,
+               hbm_frac=emb.hbm_bytes(cfg) / emb.total_bytes(cfg),
+               hot_fractions=embedding_hot_fractions(dev))
+    for i, w in enumerate(windows):
+        log(f"phase 13 (d) window {i} " + json.dumps(w))
+    log("phase 13 (d) " + json.dumps({k: v for k, v in res.items()
+                                      if k != "windows"}))
+    return res
+
+
+def embedding_hot_fractions(dev):
+    """benchmarks/bench_embedding.py on the card: vocab 32768 x 128 fp32
+    (numpy seed 0), zipf 1.1 scattered ids, batches of 8192; at hot
+    fractions 0.01, 0.05 and 0.25, four windows of lookup and collect, then
+    the cold-hit rate of one more lookup (the steady rate). Six more
+    lookups follow each, as the benchmark's timing draws them, so the
+    random stream stays the benchmark's."""
+    import torch
+    from repro_torch.models import embedding as emb
+    vocab, d = 32768, 128
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.normal(size=(vocab, d)).astype(np.float32))\
+        .to(dev)
+    w = 1.0 / np.power(np.arange(1, vocab + 1, dtype=np.float64), 1.1)
+    cdf = np.cumsum(w) / np.sum(w)
+    scramble = rng.permutation(vocab)
+
+    def batch(k=8192):
+        return torch.from_numpy(scramble[np.searchsorted(
+            cdf, rng.random(k))].astype(np.int32)).to(dev)
+    out = {}
+    for hot_frac in (0.01, 0.05, 0.25):
+        cfg = emb.TieredEmbeddingConfig(vocab_size=vocab, d_model=d,
+                                        hot_rows=max(int(vocab * hot_frac),
+                                                     1))
+        s = emb.init(cfg, table)
+        for _ in range(4):
+            _, s = emb.lookup(cfg, s, batch())
+            s, rep = emb.collect(cfg, s)
+        _, s = emb.lookup(cfg, s, batch())
+        cold = int(s["win_cold_hits"]) / max(int(s["win_lookups"]), 1)
+        for _ in range(6):
+            emb.lookup(cfg, s, batch())
+        out[str(hot_frac)] = dict(
+            cold_hit_rate=cold, coverage=float(rep["hot_coverage"]),
+            hbm_frac=emb.hbm_bytes(cfg, torch.float32) /
+            emb.total_bytes(cfg, torch.float32))
+    return out
+
+
+def crest_path(dev):
+    """Phase 13: (a) and (b) `crest_table1_fig7`, (c) `crest_full`, (d)
+    `embedding_run`."""
+    t = [time.perf_counter()]
+    res = {}
+    res["table1"], res["fig7"] = crest_table1_fig7(dev)
+    t.append(time.perf_counter())
+    res["full"] = crest_full(dev)
+    t.append(time.perf_counter())
+    res["embedding"] = embedding_run(dev)
+    t.append(time.perf_counter())
+    res["seconds"] = {k: t[i + 1] - t[i] for i, k in
+                      enumerate(("a and b", "c", "d"))}
+    log("phase 13 " + ", ".join(f"({k}) {v:.1f} s" for k, v in
+                                res["seconds"].items()) +
+        f", in all {t[-1] - t[0]:.1f} s")
+    return res
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
@@ -3439,6 +3869,9 @@ def main(argv=None) -> int:
     only.add_argument("--train-only", action="store_true",
                       help="run phases 1, 2, phase 3's mamba_scan checks "
                       "and phase 12 only, and print no result line")
+    only.add_argument("--crest-only", action="store_true",
+                      help="run phases 1, 2 and 13 only, and print no "
+                      "result line")
     args = ap.parse_args(argv)
     # phase 12 runs under deterministic algorithms, whose cuBLAS needs a
     # fixed workspace, set before CUDA starts (the size PyTorch picks by
@@ -3522,6 +3955,12 @@ def main(argv=None) -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, "
             "part of 3, 12 only: no result line)")
         return 0
+    if args.crest_only:
+        stamp(13)
+        crest_path(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, 13 "
+            "only: no result line)")
+        return 0
     stamp(3)
     kernels = {
         "paged_attention": check_paged_attention(dev, mc, kv_cfg, pcfg,
@@ -3554,6 +3993,8 @@ def main(argv=None) -> int:
     hybrid = hybrid_path(dev)
     stamp(12)
     train = train_path(dev)
+    stamp(13)
+    crest = crest_path(dev)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
     main_launches["flash_attention"] = \
@@ -3665,7 +4106,7 @@ def main(argv=None) -> int:
         "launches_per_step": {k: launches[k] / steps for k in HADES_KERNELS},
         "prefill": prefill_summary, "kernel_vs_plain": path,
         "falcon_mamba": mamba, "olmoe": olmoe, "engine": engine,
-        "zamba2": hybrid, "train": train,
+        "zamba2": hybrid, "train": train, "crest": crest,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

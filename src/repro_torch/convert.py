@@ -1,6 +1,7 @@
 """Convert the JAX package's parameter pytree into the port's parameters
-(`from_jax`), its AdamW state into the port's (`opt_from_jax`), and a JAX
-pool state into the port's (`pool_from_jax`), so that both packages
+(`from_jax`), its AdamW state into the port's (`opt_from_jax`), a JAX
+pool state into the port's (`pool_from_jax`) and a JAX tiered-embedding
+state into the port's (`embedding_from_jax`), so that both packages
 compute the same function, or continue the same run, in the tests.
 
 Input: the JAX params with every leaf already a numpy array (for example
@@ -86,3 +87,10 @@ def pool_from_jax(state: dict, device="cpu") -> dict:
     (`bstate`: {} or the mglru / promote arrays) leaf by leaf."""
     return {k: pool_from_jax(v, device) if isinstance(v, dict)
             else _leaf(v, device) for k, v in state.items()}
+
+
+def embedding_from_jax(state: dict, device="cpu") -> dict:
+    """A JAX tiered-embedding state (`models/embedding.py`; numpy leaves)
+    -> the port's on `device`: the same keys and dtypes, bf16 tables bit
+    for bit, the window counters as 0-d int32 tensors."""
+    return {k: _tensor(v, device) for k, v in state.items()}

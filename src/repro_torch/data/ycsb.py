@@ -14,7 +14,7 @@ Workload mixes (YCSB core):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -69,3 +69,17 @@ class ZipfianKeys:
         """The keys covering the top `frac` of access probability."""
         n_hot = max(1, int(np.searchsorted(self.cdf, frac)))
         return self.scramble[:n_hot]
+
+
+def ops_stream(mix: WorkloadMix, keys: ZipfianKeys, n_ops: int,
+               batch: int = 4096, seed: int = 1
+               ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (op_is_update [b], keys [b]) batches, deterministic per seed."""
+    rng = np.random.default_rng(seed)
+    done = 0
+    while done < n_ops:
+        b = min(batch, n_ops - done)
+        ks = keys.sample(b)
+        upd = rng.random(b) < mix.update_frac
+        yield upd, ks
+        done += b

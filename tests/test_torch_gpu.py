@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
+from repro_torch.data.structures import STRUCTURES
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -1521,3 +1522,79 @@ def test_hades_on_card_matches_cpu(cuda):
     assert torch.equal(bg, bc) and torch.equal(bc, torch.from_numpy(vals))
     assert all(torch.equal(sg[k].cpu(), sc[k]) for k in sc)
     assert mg == mc and mc[1]["moves"] > 0
+
+
+CREST_ARRAYS = ("addr", "size", "heap", "access", "ciw", "atc", "resident",
+                "referenced", "evict")
+
+
+def _crest_pair(structure, workload, n, cuda, **sim):
+    """The same CrestKV run with the SimHeap's backend on the card and on
+    the CPU: [(kv, stats)] * 2."""
+    from repro_torch.data.crestkv import CrestKV, default_sim_config
+    out = []
+    for dev in (cuda, "cpu"):
+        kv = CrestKV(structure, n, default_sim_config(n, **sim), seed=0,
+                     device=dev)
+        out.append((kv, kv.run(workload, 12 * n, window_ops=3 * n, seed=1)))
+    return out
+
+
+def _assert_crest_equal(a, b):
+    (ka, sa), (kb, sb) = a, b
+    assert sa == sb and ka.heap.window_log == kb.heap.window_log
+    assert np.array_equal(ka.value_obj, kb.value_obj)
+    for k in CREST_ARRAYS:
+        assert np.array_equal(getattr(ka.heap, k), getattr(kb.heap, k)), k
+    for k in ("cursor", "live_bytes", "total_moves", "ciw_threshold"):
+        assert getattr(ka.heap, k) == getattr(kb.heap, k), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_crestkv_structure_on_card_matches_cpu(cuda, structure):
+    """Table 1's run (YCSB-A, HADES with `proactive`) at 2,000 keys: the
+    backend on the card gives the CPU's run exactly."""
+    _assert_crest_equal(*_crest_pair(structure, "A", 2000, cuda,
+                                     backend="proactive", enabled=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_crestkv_backend_on_card_matches_cpu(cuda, backend):
+    """hash-pugh under YCSB-B with each backend under a memory target:
+    the card's run is the CPU's exactly."""
+    pair = _crest_pair("hash-pugh", "B", 2000, cuda, backend=backend,
+                       enabled=True, hbm_target_bytes=int(0.4 * 2000 * 1200))
+    _assert_crest_equal(*pair)
+    if backend in ("cap", "reactive", "mglru"):
+        assert pair[0][1].faults > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_on_card_matches_cpu(cuda, dtype):
+    """Windows of lookup and collect, then write_rows, at vocab 1024 x 32
+    with 64 hot rows: every output, report and state leaf on the card
+    equals the CPU's."""
+    from repro_torch.models import embedding as emb
+    cfg = emb.TieredEmbeddingConfig(vocab_size=1024, d_model=32, hot_rows=64)
+    table = torch.randn(1024, 32, generator=torch.Generator().manual_seed(0))
+    w = 1.0 / np.power(np.arange(1, 1025, dtype=np.float64), 1.1)
+    cdf = np.cumsum(w) / np.sum(w)
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.permutation(1024)[np.searchsorted(
+        cdf, rng.random((4, 256)))].astype(np.int32)) for _ in range(6)]
+    rows = torch.from_numpy(rng.permutation(1024)[:16])
+    vals = torch.randn(16, 32, generator=torch.Generator().manual_seed(1))
+    res = []
+    for dev in (cuda, "cpu"):
+        s = emb.init(cfg, table.to(dev, dtype))
+        outs = []
+        for t in toks:
+            e, s = emb.lookup(cfg, s, t.to(dev))
+            s, rep = emb.collect(cfg, s)
+            outs += [e, *rep.values(), *s.values()]
+        s = emb.write_rows(s, rows.to(dev), vals.to(dev, dtype))
+        res.append([o.cpu() for o in outs + list(s.values())])
+    assert all(torch.equal(a, b) for a, b in zip(*res))

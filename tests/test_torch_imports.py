@@ -37,7 +37,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.device", "repro_torch.tree",
             "repro_torch.optim.adamw", "repro_torch.data.lm",
             "repro_torch.checkpoint.ckpt", "repro_torch.runtime.trainer",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.data.structures",
+            "repro_torch.data.crestkv",
+            "repro_torch.models.embedding"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
