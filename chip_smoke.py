@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--access-scan-was PATH] [--migrate-was PATH]
                           [--engine-only | --hybrid-only | --train-only |
-                           --crest-only]
+                           --crest-only | --families-only]
 
 Run from the root of a checkout (it puts `src` on sys.path itself). With
 --access-scan-was, phase 3 also builds an earlier `access_scan.cu` (its C
@@ -13,7 +13,8 @@ entry without the work and scratch arguments) in phases 3 and 10.
 --engine-only runs phases 1, 2 and 10 alone, --hybrid-only phases 1, 2,
 phase 3's flash_attention and mamba_scan checks and phase 11, --train-only
 phases 1, 2, phase 3's mamba_scan checks and phase 12, --crest-only
-phases 1, 2 and 13; none prints a result line. In order:
+phases 1, 2 and 13, --families-only phases 1, 2, phase 3's
+flash_attention checks and phase 14; none prints a result line. In order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port (`src/repro_torch/kernels/
@@ -35,8 +36,11 @@ phases 1, 2 and 13; none prints a result line. In order:
      mamba2 chunk carry: B=2 x 32 chunks and B=8 x 1 over 64 x 5120
      lanes), and its backward kernel mamba_scan_bwd bit for bit against
      `ref.mamba_scan_bwd` at the sweep's shapes, falcon-mamba's prefill
-     shape and zamba2's carry; flash_attention at chatglm3-6b's, olmoe-1b-7b's and
-     zamba2-2.7b's (H = KV = 32, D = 80) prefill shapes, and
+     shape and zamba2's carry; flash_attention at chatglm3-6b's, olmoe-1b-7b's,
+     zamba2-2.7b's (H = KV = 32, D = 80), seamless-m4t-large-v2's
+     (its encoder non-causal over 1024 frames, its decoder; H = KV = 16,
+     D = 64) and qwen2-vl-72b's (H = 64 over KV = 8, D = 128) prefill
+     shapes, each timed beside SDPA and its bound, and
      at the bf16 edges of its tensor-core variant and on strided views,
      each case logged with the variant that ran: bf16 on the tensor
      cores, fp32 and a view TMA cannot describe on the CUDA cores;
@@ -224,7 +228,30 @@ phases 1, 2 and 13; none prints a result line. In order:
      tokens and `collect`, then `write_rows` of 64 rows, half hot,
      identical on the card and the CPU; cold-hit rate and coverage per
      window, ms per call, and bench_embedding.py's steady cold-hit rates at
-     hot fractions 0.01, 0.05 and 0.25.
+     hot fractions 0.01, 0.05 and 0.25;
+ 14. the encoder-decoder and VLM families (random bf16 weights from a
+     seeded generator, attn_impl="flash"): (a) seamless-m4t-large-v2 at
+     full width and depth (24 encoder + 24 decoder layers, d_model 1024,
+     16 heads of 64, d_ff 8192 gated, vocab 256206): phase 7's prefill of
+     B=2 x S=4096 tokens over 1024 frame embeddings fp32, exactly 48
+     flash_attention launches a prefill, all on the tensor cores (24
+     non-causal in the encoder, 24 causal in the decoder, counted by
+     mask), finite logits, ms a prefill and the idle share; then 8
+     teacher-forced and 8 greedy decode steps of 8 sequences over the
+     encoder's output of their own frames: ms a step, kernels a step,
+     idle share; (b) qwen2-vl-72b at full width and its first 16 of 80
+     layers (80 are 135 GiB of bf16, past the card; d_model 8192, 64
+     heads over 8 KV heads, d_ff 29568, vocab 152064): phase 7's prefill
+     of 256 patch embeddings and 3840 tokens (S = 4096), exactly 16
+     flash_attention launches, all on the tensor cores; the same prefill
+     through `lm_forward` with M-RoPE grid positions [3, B, S]; 16 decode
+     steps of 8 sequences; (c) both at full width and 2 layers (2 + 2 for
+     seamless), phase 6's rule: flash against blockwise in float32 and
+     bfloat16, the prefill with flash_attention's plain version patched
+     in (qwen2-vl also with the grid positions, where blockwise masks by
+     the temporal stream and is no reference), and the float32
+     teacher-forced decode of B=2 x 64 tokens against their prefill
+     within 1e-3 of the largest |logit|.
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
 is not run from a checkout, or if any phase fails. The last lines of its
@@ -1008,20 +1035,24 @@ def _flash_run(fn):
     return out, ran[0]
 
 
-def check_flash_attention(dev, mc, olmoe, zamba):
+def check_flash_attention(dev, mc, olmoe, zamba, enc, vlm):
     """Every case against the plain version (2e-5 fp32, 2e-2 bf16), with
     the variant that ran: the CPU tests' sweep and the prefill shape in
-    both dtypes (chatglm3-6b's, olmoe-1b-7b's, whose H = KV = 16, and
-    zamba2-2.7b's shared block, H = KV = 32 at D = 80), the
+    both dtypes (chatglm3-6b's, olmoe-1b-7b's, whose H = KV = 16,
+    zamba2-2.7b's shared block, H = KV = 32 at D = 80,
+    seamless-m4t-large-v2's encoder, non-causal over its 1024 frames, and
+    decoder, H = KV = 16 at D = 64, and qwen2-vl-72b's, H = 64 over KV = 8
+    at D = 128), the
     tensor-core kernel's bf16 edges, and bf16 views of a
     fused projection (the tensor cores) and one TMA cannot describe (the
     CUDA cores). bf16 cases other than that view must run on the tensor
     cores, fp32 ones on the CUDA cores. Then the tensor-core kernel timed
     at the prefill shape beside the plain version, SDPA and the bound, and
     the CUDA-core kernel on the same bf16 inputs (as a view TMA cannot
-    describe) in the same run; then the tensor-core kernel at olmoe's and
-    at zamba2's prefill shapes, beside the plain version, SDPA and the
-    bound."""
+    describe) in the same run; then the tensor-core kernel at olmoe's,
+    zamba2's, seamless's (encoder and decoder) and qwen2-vl's prefill
+    shapes, beside the plain version, SDPA (non-causal for the encoder)
+    and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1046,13 +1077,18 @@ def check_flash_attention(dev, mc, olmoe, zamba):
     cases = [(shape, causal, window, dtype, "sweep")
              for shape in FLASH_SWEEP for causal, window in FLASH_MASKS
              for dtype in tols]
-    olmoe_shape, zamba_shape = ((PREFILL_B, PREFILL_S, c.num_heads,
-                                 c.num_kv_heads, c.resolved_head_dim)
-                                for c in (olmoe, zamba))
-    cases += [(shape, True, 0, dtype, kind)
-              for shape, kind in ((main, "prefill"),
-                                  (olmoe_shape, "prefill olmoe"),
-                                  (zamba_shape, "prefill zamba2"))
+    olmoe_shape, zamba_shape, enc_shape, vlm_shape = (
+        (PREFILL_B, PREFILL_S, c.num_heads, c.num_kv_heads,
+         c.resolved_head_dim) for c in (olmoe, zamba, enc, vlm))
+    # (name, shape, causal) of the prefill shapes timed after `main`
+    more_shapes = [("olmoe", olmoe_shape, True),
+                   ("zamba2", zamba_shape, True),
+                   ("seamless_encoder", (PREFILL_B, enc.encoder_seq_len)
+                    + enc_shape[2:], False),
+                   ("seamless", enc_shape, True),
+                   ("qwen2_vl", vlm_shape, True)]
+    cases += [(shape, causal, 0, dtype, f"prefill {name}")
+              for name, shape, causal in [("", main, True)] + more_shapes
               for dtype in (torch.bfloat16, torch.float32)]
     cases += [(e[:5], e[5], e[6], torch.bfloat16, "edge")
               for e in FLASH_TC_EDGES]
@@ -1088,30 +1124,35 @@ def check_flash_attention(dev, mc, olmoe, zamba):
         if not err < tols[dtype]:
             raise AssertionError(f"flash_attention {shape} causal={causal} "
                                  f"window={window} {dtype}: err {err}")
-        key = (kind, str(dtype)[6:], variant)
+        key = (kind.strip(), str(dtype)[6:], variant)
         worst[key] = max(worst.get(key, 0.0), err)
         ran[variant] += 1
     log(f"flash_attention: {len(cases)} cases within 2e-5 (fp32) / 2e-2 "
         f"(bf16), {dict(ran)}; max |err| {worst}")
-    def timed(shape):
-        """The kernel at `shape` (bf16, causal) beside the plain version,
-        SDPA and the bound."""
+    def timed(shape, causal=True):
+        """The kernel at `shape` (bf16) beside the plain version, SDPA and
+        the bound: causal, 2 x B x H x D x S(S+1) operations (the two
+        products over the S(S+1)/2 pairs a causal mask keeps), else
+        4 x B x H x D x S^2."""
         q, k, v = inputs(*shape, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        _, variant = _flash_run(lambda: ops.flash_attention(q, k, v))
-        t = timings(lambda: ops.flash_attention(q, k, v), 20,
-                    lambda: ref.flash_attention(q, k, v), 3,
+        _, variant = _flash_run(
+            lambda: ops.flash_attention(q, k, v, causal=causal))
+        t = timings(lambda: ops.flash_attention(q, k, v, causal=causal), 20,
+                    lambda: ref.flash_attention(q, k, v, causal=causal), 3,
                     lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True))
+                        qt, kt, vt, is_causal=causal, enable_gqa=True))
         b, s, h, kv, d = shape
+        mask = "causal" if causal else "non-causal"
         b_ms, b_by = bound(b * s * (2 * h + 2 * kv) * d * 2,
-                           2 * b * h * d * s * (s + 1), "bf16")
+                           (2 * b * h * d * s * (s + 1) if causal
+                            else 4 * b * h * d * s * s), "bf16")
         log(f"flash_attention ({variant}): {_fmt(t)} (library: SDPA), bound "
             f"{b_ms:.5f} ms ({b_by}) at B={b} S={s} H={h} KV={kv} D={d} "
-            "bf16 causal")
+            f"bf16 {mask}")
         return (q, k, v), dict(
             bound_ms=b_ms, bound_by=b_by, variant=variant, **t,
-            shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16 causal")
+            shape=f"B={b} S={s} H={h} KV={kv} D={d} bf16 {mask}")
 
     (q, k, v), res = timed(main)
     q_odd = odd_view(q)
@@ -1121,8 +1162,8 @@ def check_flash_attention(dev, mc, olmoe, zamba):
         f"{cc_ms:.4f} ms per call")
     del q_odd, q, k, v
     more = {}
-    for name, shape in (("olmoe", olmoe_shape), ("zamba2", zamba_shape)):
-        more[name] = timed(shape)[1]
+    for name, shape, causal in more_shapes:
+        more[name] = timed(shape, causal)[1]
         more[name]["max_abs_err"] = worst[(f"prefill {name}", "bfloat16",
                                            more[name]["variant"])]
         more[name]["max_abs_err_fp32"] = worst[(f"prefill {name}", "float32",
@@ -1493,7 +1534,9 @@ LABELLED = {
     "repro_torch.models.layers": ("embed", "rms_norm", "mlp", "positional",
                                   "logits_head"),
     "repro_torch.models.transformer": ("_qkv", "decode_layer_step",
-                                       "attn_ffn_block"),
+                                       "attn_ffn_block", "encoder_forward",
+                                       "_enc_kv", "_cross"),
+    "repro_torch.models.attention": ("cross_attention",),
     "repro_torch.models.ssm": ("mamba2_forward", "causal_conv"),
     "repro_torch.models.moe": ("moe_block", "_route", "_experts"),
     "repro_torch.models.kvcache": ("append_layer", "attend",
@@ -1978,11 +2021,27 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _prompts(cfg, dev, seed):
+def _prompts(cfg, dev, seed, b=PREFILL_B, s=PREFILL_S):
+    """A prefill batch of b x s positions from numpy's seeded generator:
+    tokens [b, s]; for a VLM, extra_embeds [b, P, D] (P = vlm_patches(s),
+    in the model's dtype) and s - P tokens; for an encoder-decoder also
+    enc_embeds [b, S_enc, D] fp32 (the JAX package's batch; embeddings
+    N(0, 1) x 0.02, as `Model.make_inputs` draws them)."""
     import torch
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
-    return {"tokens": torch.from_numpy(toks).to(dev)}
+    from repro_torch.models.model import vlm_patches
+    rng = np.random.default_rng(seed)
+    p = vlm_patches(s) if cfg.frontend == "vision" else 0
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s - p))).to(dev)}
+
+    def embeds(n, dtype):
+        x = rng.standard_normal((b, n, cfg.d_model), np.float32) * 0.02
+        return torch.from_numpy(x).to(dev, dtype)
+    if p:
+        batch["extra_embeds"] = embeds(p, getattr(torch, cfg.dtype))
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = embeds(cfg.encoder_seq_len, torch.float32)
+    return batch
 
 
 def prefill_flash_vs_blockwise(dev, arch="chatglm3-6b", layers=2):
@@ -2059,30 +2118,37 @@ def prefill_flash_vs_blockwise(dev, arch="chatglm3-6b", layers=2):
 
 def _cut(arch, layers=None, dtype=None):
     """`arch` at full width; depth cut to its first `layers` blocks if
-    given (a hybrid config to whole groups)."""
+    given (a hybrid config to whole groups, an encoder-decoder's encoder
+    to as many layers)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers,
-                                  block_pattern=cfg.block_pattern[:layers])
+        cfg = dataclasses.replace(
+            cfg, num_layers=layers, block_pattern=cfg.block_pattern[:layers],
+            num_encoder_layers=layers if cfg.is_encoder_decoder else 0)
     return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
 
 def _n_blocks(cfg, kind) -> int:
     """The config's mamba blocks (kind "ssm": mamba1 or mamba2, one
-    mamba_scan launch each) or attention blocks (kind "attn": a layer or
-    an occurrence of the shared block, one flash_attention launch each)."""
+    mamba_scan launch each) or attention blocks (kind "attn": a layer, an
+    encoder layer or an occurrence of the shared block, one
+    flash_attention launch each)."""
     from repro_torch.configs import base
     kinds = {"ssm": (base.MAMBA1, base.MAMBA2),
              "attn": (base.ATTN, base.SHARED_ATTN)}[kind]
-    return sum(k in kinds for k in cfg.blocks)
+    enc = cfg.num_encoder_layers if kind == "attn" and \
+        cfg.is_encoder_decoder else 0
+    return enc + sum(k in kinds for k in cfg.blocks)
 
 
-def _decode_logits(model, params, toks):
-    """Teacher-forced decode of toks [B, S] from a fresh state: [B, S, V]."""
+def _decode_logits(model, params, toks, enc_out=None):
+    """Teacher-forced decode of toks [B, S] from a fresh state (over an
+    encoder-decoder's enc_out): [B, S, V]."""
     import torch
-    state = model.init_decode_state(toks.shape[0], toks.shape[1])
+    state = model.init_decode_state(toks.shape[0], toks.shape[1],
+                                    enc_out=enc_out)
     out = []
     for t in range(toks.shape[1]):
         lg, state = model.decode_step(params, state, toks[:, t])
@@ -2311,25 +2377,27 @@ def measure_prefill(model, params, cfg, dev, want, device_want, absent=None):
 # ---------------------------------------------------------------------------
 # phase 8: the mamba1 path at full width and depth
 # ---------------------------------------------------------------------------
-def mamba_decode(model, params, cfg, dev):
-    """Decode of DECODE_B sequences: DECODE_PROMPT teacher-forced tokens,
-    then DECODE_NEW greedy ones, each step's launches counted from 0 (one
-    mamba_scan per mamba block and no other kernel); then a profiled
-    stretch of 4 more steps for the idle share."""
+def decode_run(model, params, cfg, dev, prompt_len=DECODE_PROMPT,
+               new=DECODE_NEW, enc_out=None):
+    """Decode of DECODE_B sequences (over an encoder-decoder's enc_out):
+    `prompt_len` teacher-forced tokens, then `new` greedy ones, each
+    step's launches counted from 0 (one mamba_scan per mamba block and no
+    other kernel: an attention layer's decode launches none); then a
+    profiled stretch of 4 more steps for the idle share."""
     import torch
     from repro_torch.kernels import ops
     prompt = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (DECODE_B, DECODE_PROMPT))).to(dev)
-    state = model.init_decode_state(DECODE_B,
-                                    DECODE_PROMPT + DECODE_NEW + 4)
+        0, cfg.vocab_size, (DECODE_B, prompt_len))).to(dev)
+    state = model.init_decode_state(DECODE_B, prompt_len + new + 4,
+                                    enc_out=enc_out)
     tok, per_step = prompt[:, 0], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(DECODE_PROMPT + DECODE_NEW):
+    for t in range(prompt_len + new):
         ops.reset_launches()
         logits, state = model.decode_step(params, state, tok)
         per_step.append(dict(ops.launches))
-        tok = prompt[:, t + 1] if t + 1 < DECODE_PROMPT else logits.argmax(-1)
+        tok = prompt[:, t + 1] if t + 1 < prompt_len else logits.argmax(-1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     want = {"mamba_scan": _n_blocks(cfg, "ssm")}
@@ -2355,9 +2423,10 @@ def mamba_decode(model, params, cfg, dev):
                device_busy_ms_per_step=busy_us / 1e3 / 4,
                device_idle_share=1 - busy_us / 1e3 / prof_ms,
                kernels_per_step=len(dev_ev) / 4)
-    log(f"{cfg.name} decode: B={DECODE_B}, {DECODE_PROMPT} teacher-forced "
-        f"+ {DECODE_NEW} greedy steps, {want['mamba_scan']} mamba_scan "
-        f"launches each: {ms_step:.2f} ms per step, "
+    log(f"{cfg.name} decode: B={DECODE_B}, {prompt_len} teacher-forced "
+        f"+ {new} greedy steps, {want['mamba_scan']} mamba_scan "
+        f"launches and no other port kernel each: {ms_step:.2f} ms per "
+        "step, "
         f"{res['tok_per_s']:.1f} tok/s; "
         f"profiled 4 steps: {res['profiled_ms_per_step']:.2f} ms per step, "
         f"device busy {res['device_busy_ms_per_step']:.3f} ms of it, idle "
@@ -2399,7 +2468,7 @@ def mamba_full(dev):
         res = dict(params=n_params, prefill=measure_prefill(
             model, params, cfg, dev, {"mamba_scan": cfg.num_layers},
             {"mamba_scan_kernel": cfg.num_layers}))
-        res["decode"] = mamba_decode(model, params, cfg, dev)
+        res["decode"] = decode_run(model, params, cfg, dev)
         res["drift_bf16"] = mamba_drift(model, params, cfg, dev)
     del params
     torch.cuda.empty_cache()
@@ -3032,7 +3101,7 @@ def hybrid_path(dev):
              "mamba_scan_kernel": n_ssm}, absent="flash_attention_kernel"))
         res["prefill_by_origin"] = prefill_by_origin(model, params, cfg, dev)
         t.append(time.perf_counter())
-        res["decode"] = mamba_decode(model, params, cfg, dev)
+        res["decode"] = decode_run(model, params, cfg, dev)
         res["drift_bf16"] = mamba_drift(model, params, cfg, dev)
     del params
     torch.cuda.empty_cache()
@@ -3846,6 +3915,258 @@ def crest_path(dev):
         f", in all {t[-1] - t[0]:.1f} s")
     return res
 
+# ---------------------------------------------------------------------------
+# phase 14: the encoder-decoder (seamless-m4t-large-v2) and VLM
+# (qwen2-vl-72b) families
+# ---------------------------------------------------------------------------
+ENC_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "qwen2-vl-72b"
+# qwen2-vl-72b's 80 layers are 135 GiB of bf16 weights, past the card's 80
+# GB: (b) runs its first 16 (30.8 GiB with the embedding and the head)
+VLM_CUT = 16
+FAMILY_CUT = 2     # (c): layers (and encoder layers) at full width
+FAMILY_DECODE = 8  # (a), (b): teacher-forced, then as many greedy steps
+
+
+def _flash_modes(fn):
+    """fn()'s result and its flash_attention calls by mask: {"causal": n,
+    "non_causal": n} (a spy around the wrapper: the launches themselves
+    are counted by `ops.launches`)."""
+    from repro_torch.kernels import ops
+    real, modes = ops.flash_attention, collections.Counter()
+
+    def spy(q, k, v, *, causal=True, window=0):
+        modes["causal" if causal else "non_causal"] += 1
+        return real(q, k, v, causal=causal, window=window)
+    with mock.patch.object(ops, "flash_attention", spy):
+        out = fn()
+    return out, dict(modes)
+
+
+def _grid_positions(cfg, dev, b=PREFILL_B, s=PREFILL_S):
+    """M-RoPE positions [3, b, s] of a VLM prompt: the P = g x g patches at
+    t = 0, h = i // g, w = i % g, then the text tokens at g + j in all
+    three streams."""
+    import torch
+    from repro_torch.models.model import vlm_patches
+    p = vlm_patches(s)
+    g = int(round(p ** 0.5))
+    if g * g != p:
+        raise ValueError(f"{p} patches make no square grid")
+    i = torch.arange(p, device=dev)
+    pos = torch.empty((3, b, s), dtype=torch.int64, device=dev)
+    pos[0, :, :p] = 0
+    pos[1, :, :p] = i // g
+    pos[2, :, :p] = i % g
+    pos[:, :, p:] = g + torch.arange(s - p, device=dev)
+    return pos
+
+
+def encdec_full(dev):
+    """(a) seamless-m4t-large-v2 at full width and depth (24 + 24 layers,
+    random bf16 weights from a seeded generator), attn_impl="flash": phase
+    7's prefill of B=2 x S=4096 tokens over 1024 frame embeddings (exactly
+    48 flash_attention launches, all on the tensor cores, 48
+    `flash_attention_wgmma_kernel` in the profile: 24 non-causal in the
+    encoder, 24 causal in the decoder, counted by mask in one more prefill)
+    and its device time by launching function (`prefill_by_origin`), then
+    decode of 8 sequences over the encoder's output of their own frames (no
+    port kernel a step)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    cfg = _cut(ENC_ARCH)
+    model = Model(cfg, attn_impl="flash", device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    n_attn = _n_blocks(cfg, "attn")
+    log(f"{cfg.name}: {cfg.num_encoder_layers} encoder + {cfg.num_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"params ({cfg.dtype}), init {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        res = dict(params=n_params, prefill=measure_prefill(
+            model, params, cfg, dev, {"flash_attention": n_attn},
+            {"flash_attention_wgmma_kernel": n_attn},
+            absent="flash_attention_kernel"))
+        res["prefill_by_origin"] = prefill_by_origin(model, params, cfg, dev)
+        _, modes = _flash_modes(lambda: model.prefill(
+            params, _prompts(cfg, dev, seed=0)))
+        want = {"causal": cfg.num_layers,
+                "non_causal": cfg.num_encoder_layers}
+        log(f"{cfg.name} prefill flash_attention calls by mask: {modes}")
+        if modes != want:
+            raise AssertionError(f"flash_attention calls {modes}, want "
+                                 f"{want}")
+        res["flash_modes"] = modes
+        frames = _prompts(cfg, dev, seed=3, b=DECODE_B)["enc_embeds"]
+        enc_out = T.encoder_forward(params, cfg, frames, attn_impl="flash")
+        res["decode"] = decode_run(model, params, cfg, dev, FAMILY_DECODE,
+                                   FAMILY_DECODE, enc_out=enc_out)
+    del params, enc_out
+    torch.cuda.empty_cache()
+    return res
+
+
+def vlm_full(dev):
+    """(b) qwen2-vl-72b at full width and VLM_CUT layers (random bf16
+    weights from a seeded generator), attn_impl="flash": phase 7's prefill
+    of 256 patch embeddings and 3840 tokens (S = 4096; exactly 16
+    flash_attention launches, all on the tensor cores) and its device time
+    by launching function; the same prefill through `lm_forward` with the
+    [3, B, S] grid positions (16 launches, finite logits, ms); then
+    text-only decode of 8 sequences."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    cfg = _cut(VLM_ARCH, layers=VLM_CUT)
+    model = Model(cfg, attn_impl="flash", device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"{cfg.name}: {cfg.num_layers} of {_cut(VLM_ARCH).num_layers} "
+        f"layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params "
+        f"({n_params * 2 / 2 ** 30:.1f} GiB {cfg.dtype}), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        res = dict(params=n_params, layers=cfg.num_layers,
+                   prefill=measure_prefill(
+                       model, params, cfg, dev,
+                       {"flash_attention": cfg.num_layers},
+                       {"flash_attention_wgmma_kernel": cfg.num_layers},
+                       absent="flash_attention_kernel"))
+        res["prefill_by_origin"] = prefill_by_origin(model, params, cfg, dev)
+        batch = _prompts(cfg, dev, seed=0)
+        pos = _grid_positions(cfg, dev)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = T.lm_forward(params, cfg, batch["tokens"],
+                                     extra_embeds=batch["extra_embeds"],
+                                     positions=pos, attn_impl="flash")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(ops.launches)
+            finite = bool(torch.isfinite(logits).all())
+            del logits
+        _only(launches, {"flash_attention": cfg.num_layers})
+        if not finite:
+            raise AssertionError("grid-position logits are not finite")
+        res["grid_positions"] = dict(ms_per_prefill=walls[-1],
+                                     runs_ms=walls, launches=launches)
+        log(f"{cfg.name} prefill with [3, B, S] grid positions: "
+            f"{walls[-1]:.1f} ms (runs {[round(w, 1) for w in walls]}), "
+            f"launches {launches}, finite logits")
+        res["decode"] = decode_run(model, params, cfg, dev, FAMILY_DECODE,
+                                   FAMILY_DECODE)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_kernel_vs_plain(dev, arch, layers=FAMILY_CUT):
+    """(c) `arch` at full width and `layers` layers (and encoder layers),
+    attn_impl="flash", in float32 (TF32 off) and bfloat16: the prefill
+    with the kernel against the same call with flash_attention's plain
+    version patched in, within phase 6's rule (5e-2 in float32, two bf16
+    ulps of the largest logit in bfloat16); for the VLM also the prefill
+    with [3, B, S] grid positions, kernel against plain under the same
+    rule (blockwise masks by the temporal stream there, by design, so it
+    is no reference for this run); in float32 the teacher-forced decode of
+    B=2 x 64 tokens against their prefill (an encoder-decoder's over the
+    prefill's own encoder output; a VLM's text only) within 1e-3 of the
+    largest |logit|."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(layers=layers, batch=PREFILL_B, seq_len=PREFILL_S)
+    for dtype in ("float32", "bfloat16"):
+        cfg = _cut(arch, layers=layers, dtype=dtype)
+        model = Model(cfg, attn_impl="flash", device="cuda")
+        params = model.init(torch.Generator(device=dev).manual_seed(2))
+        batch = _prompts(cfg, dev, seed=1)
+        runs = {"prefill": lambda: model.prefill(params, batch)}
+        if cfg.frontend == "vision":
+            pos = _grid_positions(cfg, dev)
+            runs["grid_positions"] = lambda: T.lm_forward(
+                params, cfg, batch["tokens"],
+                extra_embeds=batch["extra_embeds"], positions=pos,
+                attn_impl="flash")[0]
+        res = {}
+        with torch.inference_mode():
+            for name, fn in runs.items():
+                n0 = ops.launches["flash_attention"]
+                kernel = fn()
+                n = ops.launches["flash_attention"] - n0
+                with mock.patch.object(ops, "flash_attention",
+                                       ref.flash_attention):
+                    plain = fn()
+                err = (kernel - plain).abs().max().item()
+                top = plain.abs().max().item()
+                del kernel, plain
+                tol = 5e-2 if dtype == "float32" else 2 ** -6 * top
+                res[name] = dict(kernel_vs_plain=err, limit=tol,
+                                 max_abs_logit=top, launches=n)
+                log(f"{arch} {name} flash kernel vs plain ({dtype}, "
+                    f"{layers} layers, full width, B={PREFILL_B} "
+                    f"S={PREFILL_S}): logits max |err| {err:.3g} (< "
+                    f"{tol:.3g}), max |logit| {top:.3g}; {n} "
+                    "flash_attention launches")
+                if n != _n_blocks(cfg, "attn"):
+                    raise AssertionError(f"{n} flash_attention launches in "
+                                         f"a {layers}-layer prefill")
+                if not err < tol:
+                    raise AssertionError(f"{arch} {name} {dtype}: kernel "
+                                         f"vs plain {err}")
+            if dtype == "float32":
+                toks = batch["tokens"][:, :DRIFT_S]
+                short = {"tokens": toks}
+                if cfg.is_encoder_decoder:
+                    short["enc_embeds"] = batch["enc_embeds"]
+                pre, aux = T.lm_forward(params, cfg, toks,
+                                        enc_embeds=short.get("enc_embeds"),
+                                        attn_impl="flash", return_cache=True)
+                dec = _decode_logits(model, params, toks,
+                                     enc_out=aux["enc_out"])
+                err = (dec - pre).abs().max().item()
+                top = pre.abs().max().item()
+                res["decode_vs_prefill"] = dict(err=err, max_abs_logit=top)
+                log(f"{arch} decode vs prefill of B={PREFILL_B} x {DRIFT_S} "
+                    f"tokens (float32): {err:.3g} (< 1e-3 x {top:.3g})")
+                if not err < 1e-3 * top:
+                    raise AssertionError(f"{arch} decode vs prefill {err}")
+        del params
+        out[dtype] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def families_path(dev):
+    """Phase 14: (a) `encdec_full`, (b) `vlm_full`, (c) for both at
+    FAMILY_CUT layers, phase 6's rule: `prefill_flash_vs_blockwise` and
+    `family_kernel_vs_plain`."""
+    t = [time.perf_counter()]
+    encdec = encdec_full(dev)
+    t.append(time.perf_counter())
+    vlm = vlm_full(dev)
+    t.append(time.perf_counter())
+    for arch, res in ((ENC_ARCH, encdec), (VLM_ARCH, vlm)):
+        res["kernel_vs_plain"] = dict(
+            blockwise=prefill_flash_vs_blockwise(dev, arch, FAMILY_CUT),
+            plain=family_kernel_vs_plain(dev, arch))
+    t.append(time.perf_counter())
+    log(f"phase 14 (a) {t[1] - t[0]:.1f} s, (b) {t[2] - t[1]:.1f} s, (c) "
+        f"{t[3] - t[2]:.1f} s, in all {t[3] - t[0]:.1f} s")
+    return dict(encdec=encdec, vlm=vlm,
+                seconds=dict(a=t[1] - t[0], b=t[2] - t[1], c=t[3] - t[2]))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
@@ -3872,6 +4193,9 @@ def main(argv=None) -> int:
     only.add_argument("--crest-only", action="store_true",
                       help="run phases 1, 2 and 13 only, and print no "
                       "result line")
+    only.add_argument("--families-only", action="store_true",
+                      help="run phases 1, 2, phase 3's flash_attention "
+                      "checks and phase 14 only, and print no result line")
     args = ap.parse_args(argv)
     # phase 12 runs under deterministic algorithms, whose cuBLAS needs a
     # fixed workspace, set before CUDA starts (the size PyTorch picks by
@@ -3915,6 +4239,7 @@ def main(argv=None) -> int:
             dtype=mc.dtype)
     mc, om = get_config("chatglm3-6b"), get_config("olmoe-1b-7b")
     zb = get_config("zamba2-2.7b")
+    enc_cfg, vlm_cfg = get_config(ENC_ARCH), get_config(VLM_ARCH)
     kv_cfg, okv = kv_config(mc), kv_config(om)
     pcfg, opcfg = kv_cfg.pool_config(), okv.pool_config()
     olmoe_pa = (okv.batch, om.num_heads, om.num_kv_heads,
@@ -3938,7 +4263,7 @@ def main(argv=None) -> int:
         return 0
     if args.hybrid_only:
         stamp(3)
-        check_flash_attention(dev, mc, om, zb)
+        check_flash_attention(dev, mc, om, zb, enc_cfg, vlm_cfg)
         check_mamba_scan(dev, get_config("falcon-mamba-7b"), zb)
         stamp(11)
         hybrid = hybrid_path(dev)
@@ -3955,6 +4280,15 @@ def main(argv=None) -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, "
             "part of 3, 12 only: no result line)")
         return 0
+    if args.families_only:
+        stamp(3)
+        flash = check_flash_attention(dev, mc, om, zb, enc_cfg, vlm_cfg)
+        stamp(14)
+        families = families_path(dev)
+        log(json.dumps(dict(flash_attention=flash, **families), default=str))
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, "
+            "part of 3, 14 only: no result line)")
+        return 0
     if args.crest_only:
         stamp(13)
         crest_path(dev)
@@ -3969,7 +4303,8 @@ def main(argv=None) -> int:
                                          args.access_scan_was),
         "migrate": check_migrate(dev, pcfg, CollectorConfig().move_budget,
                                  opcfg, migrate_was),
-        "flash_attention": check_flash_attention(dev, mc, om, zb),
+        "flash_attention": check_flash_attention(dev, mc, om, zb, enc_cfg,
+                                                 vlm_cfg),
         "mamba_scan": check_mamba_scan(dev, get_config("falcon-mamba-7b"),
                                        zb),
     }
@@ -3995,6 +4330,8 @@ def main(argv=None) -> int:
     train = train_path(dev)
     stamp(13)
     crest = crest_path(dev)
+    stamp(14)
+    families = families_path(dev)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
     main_launches["flash_attention"] = \
@@ -4051,6 +4388,24 @@ def main(argv=None) -> int:
                 row["zamba2"]["launches_per_decode_step"] = \
                     hybrid["decode"]["launches_per_step"][kname]
         if kname == "flash_attention":
+            # at the shapes phase 14 runs: seamless's encoder (non-causal)
+            # and decoder, launches a prefill of its 24 + 24 layers, and
+            # qwen2-vl's, launches a prefill of its first VLM_CUT layers
+            keys = ("shape", "variant", "max_abs_err", "max_abs_err_fp32",
+                    "ms", "device_ms", "plain_ms", "plain_device_ms",
+                    "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms")
+            enc, vlm = families["encdec"], families["vlm"]
+            row["seamless"] = dict(
+                encoder={key: k["seamless_encoder"].get(key)
+                         for key in keys},
+                decoder={key: k["seamless"].get(key) for key in keys},
+                launches=enc["prefill"]["launches"][kname],
+                launches_by_mask=enc["flash_modes"])
+            row["qwen2_vl"] = {key: k["qwen2_vl"].get(key) for key in keys}
+            row["qwen2_vl"].update(
+                launches=vlm["prefill"]["launches"][kname],
+                layers=vlm["layers"])
             # the variant the main path ran (phase 7 checks its name)
             row.update(source=FLASH_SOURCES[k["variant"]],
                        variant=k["variant"], cuda_cores_ms=k["cuda_cores_ms"])
@@ -4107,6 +4462,8 @@ def main(argv=None) -> int:
         "prefill": prefill_summary, "kernel_vs_plain": path,
         "falcon_mamba": mamba, "olmoe": olmoe, "engine": engine,
         "zamba2": hybrid, "train": train, "crest": crest,
+        "encdec": families["encdec"], "vlm": families["vlm"],
+        "families_seconds": families["seconds"],
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

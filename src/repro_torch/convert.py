@@ -51,13 +51,15 @@ def _unstack(stacked) -> list:
 
 def from_jax(params: dict, device="cpu") -> dict:
     """JAX params (numpy leaves) -> the port's params on `device`:
-    "layers" [L] as a list of layer dicts, a hybrid model's "mamba" [G,
-    per] as G lists of `per` block dicts; everything else ("shared_attn"
-    included) leaf by leaf."""
+    "layers" [L] and an encoder-decoder's "enc_layers" [L_enc] as lists of
+    layer dicts, a hybrid model's "mamba" [G, per] as G lists of `per`
+    block dicts; everything else ("shared_attn", "enc_ln" and the cross
+    weights inside each layer included) leaf by leaf."""
     out = {k: _convert(v, device) for k, v in params.items()
-           if k not in ("layers", "mamba")}
-    if "layers" in params:
-        out["layers"] = _unstack(_convert(params["layers"], device))
+           if k not in ("layers", "enc_layers", "mamba")}
+    for k in ("layers", "enc_layers"):
+        if k in params:
+            out[k] = _unstack(_convert(params[k], device))
     if "mamba" in params:
         out["mamba"] = [_unstack(g) for g in
                         _unstack(_convert(params["mamba"], device))]

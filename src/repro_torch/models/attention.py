@@ -1,7 +1,8 @@
 """Attention (port of `repro/models/attention.py`): full (the oracle),
 blockwise (online softmax over KV chunks, never materialising [Sq, Sk]),
-decode (one query token against a KV cache), and the flash-decoding
-partials the paged-attention plain version is built from.
+decode (one query token against a KV cache), the flash-decoding
+partials the paged-attention plain version is built from, and cross
+attention over an encoder's memory.
 
 Shapes: q [B, S, H, D]; k/v [B, S_kv, KV, D] with H % KV == 0 (GQA groups
 are expanded inside).
@@ -168,3 +169,20 @@ def combine_partials(parts):
         tot_o = tot_o + o * scale.movedim(1, -1)[..., None]
     tot_l = torch.clamp(tot_l, min=1e-30)
     return tot_o / tot_l.movedim(1, -1)[..., None]
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: [B, Sq, H, D] over encoder memory k/v: [B, Se, KV, D], no
+    causal mask; enc_mask [B, Se] bool (True: attend) fills NEG_INF where
+    it is False. Scores and softmax in fp32, the probabilities cast to
+    v's dtype for the second product, as in the JAX package (which runs
+    this outside any kernel)."""
+    h, d = q.shape[2], q.shape[3]
+    k = _expand_kv(k, h // k.shape[2])
+    v = _expand_kv(v, h // v.shape[2])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * d ** -0.5
+    if enc_mask is not None:
+        scores = torch.where(enc_mask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)

@@ -1,11 +1,14 @@
 """Core layers of the decoder (port of `repro/models/layers.py`): RMSNorm,
-the MLP, 2d rotary embeddings, the embedding and the logits head.
+the MLP, rotary embeddings (RoPE, 2d RoPE, M-RoPE), the embedding and the
+logits head.
 
 Matmul weights keep the JAX layout ([in, out]) and the model dtype;
 norm, activation and rotary math run in fp32 and cast back, as in the JAX
 package.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,15 +66,39 @@ def apply_rope2d(x: torch.Tensor, positions: torch.Tensor,
                       x[..., half:]], dim=-1)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int] = (2, 1, 1)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE as the JAX package lays it out: the d/2 frequency
+    lanes of `rope_freqs(d, theta)` split into (temporal, height, width)
+    sections in the proportions `sections` (the first takes what rounding
+    leaves), each rotated by its own position stream, over the whole head.
+    x: [B, S, H, D]; positions: [3, B, S] (text tokens use t == h == w)."""
+    lanes = x.shape[-1] // 2
+    total = sum(sections)
+    sizes = [lanes * s // total for s in sections]
+    sizes[0] = lanes - sizes[1] - sizes[2]
+    inv = rope_freqs(x.shape[-1], theta, x.device).split(sizes)
+    pos = positions.float()
+    # each section's lanes times its own stream (no index tensor: nothing
+    # is copied from the host, so a CUDA graph can hold it)
+    ang = torch.cat([pos[i][..., None] * inv[i] for i in range(3)], dim=-1)
+    return _rotate(x, ang[:, :, None, :])
+
+
 def positional(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Dispatch on cfg.rope_style (the port runs rope, rope2d and none)."""
+    """Dispatch on cfg.rope_style. positions: [B, S], or [3, B, S] for
+    mrope (2-D positions broadcast to t == h == w)."""
     if cfg.rope_style == "none":
         return x
     if cfg.rope_style == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
     if cfg.rope_style == "rope2d":
         return apply_rope2d(x, positions, cfg.rope_theta)
-    raise NotImplementedError(f"rope_style {cfg.rope_style!r} is not ported")
+    if cfg.rope_style == "mrope":
+        if positions.dim() == 2:
+            positions = positions[None].expand((3,) + positions.shape)
+        return apply_mrope(x, positions, cfg.rope_theta)
+    raise ValueError(f"rope_style {cfg.rope_style!r}")
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,27 @@
-"""The decoder-only LM (port of the dense, MoE, ssm and hybrid branches of
-`repro/models/transformer.py`): init, the full-sequence forward and loss
-(`attn_ffn_block`, `lm_forward`, `lm_loss`), and single-token decode
-(`init_decode_state`, `lm_decode_step`) over a dense ring cache
-(`decode_layer_step`, `attn_block_decode`) or, for the ssm family
-(falcon-mamba: mamba1 layers, `models/ssm.py`), an O(1) recurrent state.
-The hybrid family (zamba2) runs G groups, each of `every - 1` mamba2
-blocks followed by the one shared attention block (`_hybrid_shape`): an
-O(1) state per mamba2 block and a ring cache per occurrence of the shared
-block.
+"""Model composition (port of `repro/models/transformer.py`): init, the
+full-sequence forward and loss (`attn_ffn_block`, `lm_forward`,
+`lm_loss`), and single-token decode (`init_decode_state`,
+`lm_decode_step`) over a dense ring cache (`decode_layer_step`,
+`attn_block_decode`) or, for the ssm family (falcon-mamba: mamba1 layers,
+`models/ssm.py`), an O(1) recurrent state. The hybrid family (zamba2) runs
+G groups, each of `every - 1` mamba2 blocks followed by the one shared
+attention block (`_hybrid_shape`): an O(1) state per mamba2 block and a
+ring cache per occurrence of the shared block. The encoder-decoder
+(seamless-m4t) runs a non-causal encoder over precomputed frame
+embeddings (`encoder_forward`) and gives every decoder layer cross
+attention over its output (`_enc_kv`, recomputed at every decode step, as
+in JAX); the VLM (qwen2-vl) prepends precomputed patch embeddings to the
+token stream (`extra_embeds`) under M-RoPE positions.
 
 Parameters are a plain dict: {"embed" [V, D], "final_ln" [D], "out" [D, V]
 (absent with tied embeddings), "layers": [one dict per layer]}; an
 attention layer holds attention weights and "ffn" (dense) or "moe"
-(`models/moe.py`), an ssm layer {"ln", "m"}. A hybrid model has no
-"layers" but "mamba": [G lists of `every - 1` {"ln", "m"} dicts] and
-"shared_attn": one attention layer, used at every occurrence. The JAX
+(`models/moe.py`), an ssm layer {"ln", "m"}. An encoder-decoder model
+adds "enc_layers" (attention layers) and "enc_ln", and its decoder layers
+hold the cross-attention weights "ln_x", "xq", "xk", "xv", "xo". A
+hybrid model has no "layers" but "mamba": [G lists of `every - 1`
+{"ln", "m"} dicts] and "shared_attn": one attention layer, used at every
+occurrence. The JAX
 package stacks the layer dicts on leading axes ([L], or [G, per]); the
 port keeps lists, since its layers run as a Python loop (`convert.py`
 unstacks).
@@ -67,7 +74,10 @@ def _normal(shape, scale: float, dtype, generator, device) -> torch.Tensor:
                         dtype=torch.float32) * scale).to(dtype)
 
 
-def init_attn_layer(cfg, dtype, generator, device) -> dict:
+def init_attn_layer(cfg, dtype, generator, device,
+                    cross: bool = False) -> dict:
+    """One attention layer; `cross` adds the cross-attention weights of an
+    encoder-decoder's decoder layer."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -84,27 +94,34 @@ def init_attn_layer(cfg, dtype, generator, device) -> dict:
         if cfg.mlp_gated:
             ffn["wg"] = nrm((d, cfg.d_ff), s)
         ff = {"ffn": ffn}
-    return {
+    p = {
         "ln1": torch.zeros(d, dtype=torch.float32, device=device),
         "ln2": torch.zeros(d, dtype=torch.float32, device=device),
         "wq": nrm((d, nq), s), "wk": nrm((d, nkv), s),
         "wv": nrm((d, nkv), s), "wo": nrm((nq, d), nq ** -0.5),
         **ff,
     }
+    if cross:
+        p.update(ln_x=torch.zeros(d, dtype=torch.float32, device=device),
+                 xq=nrm((d, nq), s), xk=nrm((d, nkv), s),
+                 xv=nrm((d, nkv), s), xo=nrm((nq, d), nq ** -0.5))
+    return p
 
 
 def _check_ported(cfg) -> None:
-    """The port runs the dense and MoE families, the ssm family of mamba1
+    """The port runs the attention families (dense, MoE, the audio
+    encoder-decoder and the VLM backbone), the ssm family of mamba1
     layers (falcon-mamba) and the hybrid family of mamba2 and shared
-    attention blocks in whole groups (zamba2); every other family
-    raises."""
-    attn = cfg.family in ("dense", "moe") and not cfg.block_pattern
+    attention blocks in whole groups (zamba2); every other family, and an
+    encoder-decoder outside the attention families, raises."""
+    attn = cfg.family in ("dense", "moe", "audio", "vlm") \
+        and not cfg.block_pattern
     ssm = cfg.family == "ssm" and set(cfg.blocks) == {MAMBA1}
     hybrid = (cfg.family == "hybrid"
               and set(cfg.blocks) <= {MAMBA2, SHARED_ATTN}
               and cfg.shared_attn_every > 0
               and cfg.num_layers % cfg.shared_attn_every == 0)
-    if not (attn or ssm or hybrid) or cfg.is_encoder_decoder:
+    if not (attn or ((ssm or hybrid) and not cfg.is_encoder_decoder)):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
@@ -121,9 +138,9 @@ def _hybrid_shape(cfg) -> Tuple[int, int]:
 
 
 def init_lm(cfg, generator: torch.Generator, device) -> dict:
-    """Random weights for a dense, MoE, ssm or hybrid decoder, at the JAX
-    package's shapes and scales (the values differ: torch's generator is
-    not JAX's)."""
+    """Random weights at the JAX package's shapes and scales (the values
+    differ: torch's generator is not JAX's). On the "meta" device nothing
+    is allocated: the tree's shapes and dtypes only."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
     params = {
@@ -151,9 +168,16 @@ def init_lm(cfg, generator: torch.Generator, device) -> dict:
         layers: List[dict] = [ssm_block(ssm_lib.init_mamba1)
                               for _ in range(cfg.num_layers)]
     else:
-        layers = [init_attn_layer(cfg, dtype, generator, device)
+        layers = [init_attn_layer(cfg, dtype, generator, device,
+                                  cross=cfg.is_encoder_decoder)
                   for _ in range(cfg.num_layers)]
     params["layers"] = layers
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = [init_attn_layer(cfg, dtype, generator,
+                                                device)
+                                for _ in range(cfg.num_encoder_layers)]
+        params["enc_ln"] = torch.zeros(cfg.d_model, dtype=torch.float32,
+                                       device=device)
     return params
 
 
@@ -181,35 +205,53 @@ def _ffn(p: dict, h: torch.Tensor, cfg, decode: bool = False):
     return moe_lib.moe_block(p["moe"], h, cfg, with_aux=not decode)
 
 
-def decode_layer_step(p: dict, x: torch.Tensor, cfg, positions, attend_fn):
+def _cross(p: dict, x: torch.Tensor, cfg, enc_kv, enc_mask=None):
+    """x plus the cross-attention of x [B, S, D] over the encoder's
+    (k, v), each [B, Se, KV, Dh] (`_enc_kv`)."""
+    b, s, _ = x.shape
+    hx = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    qx = (hx @ p["xq"]).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    ox = attn_lib.cross_attention(qx, enc_kv[0], enc_kv[1], enc_mask)
+    return x + ox.reshape(b, s, -1) @ p["xo"]
+
+
+def decode_layer_step(p: dict, x: torch.Tensor, cfg, positions, attend_fn,
+                      enc_kv=None):
     """One decoder layer of single-token decode, with the KV mechanics
     supplied by the caller. x: [B,1,D]; positions: [B,1];
     attend_fn(q, k, v) -> (attention out reshapeable to [B,1,H*Dh], aux)
-    with q [B,1,H,Dh] and k/v [B,1,KV,Dh]. Returns (x', aux, expert
-    counts): [E] int32 for a MoE layer, None for a dense one (JAX returns
-    zeros there; no caller of the port reads them)."""
+    with q [B,1,H,Dh] and k/v [B,1,KV,Dh]; enc_kv: the encoder's (k, v)
+    for cross attention, or None. Returns (x', aux, expert counts): [E]
+    int32 for a MoE layer, None for a dense one (JAX returns zeros there;
+    no caller of the port reads them)."""
     b = x.shape[0]
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg, positions)
     o, aux = attend_fn(q, k, v)
     x = x + o.reshape(b, 1, -1) @ p["wo"]
+    if enc_kv is not None:
+        x = _cross(p, x, cfg, enc_kv)
     f, _, counts = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
                         decode=True)
     return x + f, aux, counts
 
 
 def attn_ffn_block(p: dict, x: torch.Tensor, cfg, positions, *,
-                   attn_impl: str = "blockwise"):
-    """Full-sequence causal block. x: [B, S, D]; positions: [B, S] (or
-    mrope's [3, B, S]). Returns (x', aux loss, (k, v), expert counts [E]
-    int32); aux and counts are None for a dense layer. `flash` runs the
-    flash_attention kernel, whose mask ignores `positions`, as the TPU
-    kernel's does."""
+                   causal: bool = True, attn_impl: str = "blockwise",
+                   enc_kv=None, enc_mask=None):
+    """Full-sequence block, causal (a decoder) or not (an encoder). x:
+    [B, S, D]; positions: [B, S] (or mrope's [3, B, S]); enc_kv: the
+    encoder's (k, v) for cross attention after the self attention, with
+    the optional enc_mask [B, Se]. Returns (x', aux loss, (k, v), expert
+    counts [E] int32); aux and counts are None for a dense layer. `flash`
+    runs the flash_attention kernel, whose mask ignores `positions`, as
+    the TPU kernel's does (the other two mask by the primary stream,
+    `_pos2d`)."""
     b, s, _ = x.shape
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg, positions)
     pos = _pos2d(positions)
-    kwargs = dict(causal=True, window=cfg.sliding_window, q_pos=pos,
+    kwargs = dict(causal=causal, window=cfg.sliding_window, q_pos=pos,
                   k_pos=pos)
     if attn_impl == "full":
         o = attn_lib.full_attention(q, k, v, **kwargs)
@@ -217,11 +259,13 @@ def attn_ffn_block(p: dict, x: torch.Tensor, cfg, positions, *,
         o = attn_lib.blockwise_attention(q, k, v, chunk=min(512, s),
                                          **kwargs)
     elif attn_impl == "flash":
-        o = kops.flash_attention(q, k, v, causal=True,
+        o = kops.flash_attention(q, k, v, causal=causal,
                                  window=cfg.sliding_window)
     else:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     x = x + o.reshape(b, s, -1) @ p["wo"]
+    if enc_kv is not None:
+        x = _cross(p, x, cfg, enc_kv, enc_mask)
     f, aux, counts = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + f, aux, (k, v), counts
 
@@ -233,11 +277,11 @@ def _pos2d(positions):
     return positions[0] if positions.dim() == 3 else positions
 
 
-def _check_forward(cfg, remat: str, extra_embeds, enc_embeds) -> None:
+def _check_forward(cfg, remat: str, enc_embeds) -> None:
     _check_ported(cfg)
-    if extra_embeds is not None or enc_embeds is not None:
-        raise NotImplementedError("extra_embeds / enc_embeds (vlm, "
-                                  "encoder-decoder) are not ported")
+    if cfg.is_encoder_decoder and enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its forward "
+                         "needs enc_embeds [B, S_enc, D]")
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
 
@@ -253,10 +297,15 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
                extra_embeds=None, enc_embeds=None,
                attn_impl: str = "blockwise", remat: str = "none",
                return_cache: bool = False, return_hiddens: bool = False):
-    """tokens: [B, S] -> (logits [B, S, V] fp32, aux). The layers run as a
-    Python loop over params["layers"]. `return_cache` puts "kv_cache" =
-    (k, v), each [L, B, S, KV, Dh] after rotary, in aux (None for the ssm
-    family, as in JAX); `return_hiddens` puts "hiddens" [L, B, S, D], the
+    """tokens: [B, S_txt] -> (logits [B, S, V] fp32, aux). extra_embeds
+    (VLM patches) [B, P, D] are prepended, cast to the stream's dtype (S =
+    P + S_txt); enc_embeds (an encoder-decoder's frames) [B, S_enc, D] run
+    through `encoder_forward`, whose output every decoder layer attends
+    to. The layers run as a Python loop over params["layers"].
+    `return_cache` puts "kv_cache" = (k, v), each [L, B, S, KV, Dh] after
+    rotary, in aux (None for the ssm family, as in JAX), and for the
+    attention family "enc_out", the encoder's output (None without an
+    encoder); `return_hiddens` puts "hiddens" [L, B, S, D], the
     post-layer residual stream (attn-family layers only). For the
     attention family aux also holds, as in JAX, "moe_aux_loss" (fp32, the
     sum over layers), "expert_counts" [E] and "expert_counts_per_layer"
@@ -265,9 +314,11 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     keys there, and "kv_cache" None with `return_cache`. ssm layers
     ignore `positions` and `attn_impl`. `remat` (`_maybe_remat`) applies
     per layer, and for the hybrid family per group, as in JAX."""
-    _check_forward(cfg, remat, extra_embeds, enc_embeds)
+    _check_forward(cfg, remat, enc_embeds)
     _no_hiddens(cfg, return_hiddens)
     x = L.embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     if cfg.family == "ssm":
         def ssm_body(h, lp):
             y, _ = ssm_lib.mamba1_forward(
@@ -289,12 +340,19 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
         if return_cache:
             aux["kv_cache"] = None
         return _head(params, cfg, x), aux
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encoder_forward(params, cfg, enc_embeds,
+                                  attn_impl=attn_impl, remat=remat)
+
+    def layer(lp, h, enc):
+        return attn_ffn_block(
+            lp, h, cfg, positions, attn_impl=attn_impl,
+            enc_kv=None if enc is None else _enc_kv(lp, enc, cfg))
     kvs, hs, losses, counts = [], [], [], []
-    body = _maybe_remat(functools.partial(
-        attn_ffn_block, cfg=cfg, positions=positions, attn_impl=attn_impl),
-        remat)
+    body = _maybe_remat(layer, remat)
     for lp in params["layers"]:
-        x, loss, kv, cnt = body(lp, x)
+        x, loss, kv, cnt = body(lp, x, enc_out)
         if return_cache:
             kvs.append(kv)
         if return_hiddens:
@@ -313,9 +371,38 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     if return_cache:
         aux["kv_cache"] = (torch.stack([k for k, _ in kvs]),
                            torch.stack([v for _, v in kvs]))
+        aux["enc_out"] = enc_out
     if return_hiddens:
         aux["hiddens"] = torch.stack(hs)
     return _head(params, cfg, x), aux
+
+
+def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg):
+    """Project the encoder's output [B, Se, D] to this decoder layer's
+    cross-attention (k, v), each [B, Se, KV, Dh]."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (enc_out @ lp["xk"]).reshape(shape), \
+        (enc_out @ lp["xv"]).reshape(shape)
+
+
+def encoder_forward(params: dict, cfg, enc_embeds: torch.Tensor, *,
+                    attn_impl: str = "blockwise",
+                    remat: str = "none") -> torch.Tensor:
+    """The encoder: enc_embeds [B, Se, D] (any float dtype; cast to the
+    model's) through params["enc_layers"], non-causal, then "enc_ln".
+    `remat` applies per layer. Returns [B, Se, D] in the model's dtype."""
+    b, s, _ = enc_embeds.shape
+    positions = torch.arange(s, device=enc_embeds.device)[None].expand(b, s)
+    x = enc_embeds.to(getattr(torch, cfg.dtype))
+
+    def layer(lp, h):
+        return attn_ffn_block(lp, h, cfg, positions, causal=False,
+                              attn_impl=attn_impl)[0]
+    body = _maybe_remat(layer, remat)
+    for lp in params["enc_layers"]:
+        x = body(lp, x)
+    return L.rms_norm(x, params["enc_ln"], cfg.norm_eps)
 
 
 def _hybrid_forward(params: dict, cfg, x: torch.Tensor, positions,
@@ -339,11 +426,14 @@ def _hybrid_forward(params: dict, cfg, x: torch.Tensor, positions,
 def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
             *, extra_embeds=None, enc_embeds=None,
             attn_impl: str = "blockwise", remat: str = "none"):
-    """Next-token cross entropy (mean over labels != -100), plus 0.01 x
-    the MoE auxiliary loss for a MoE config."""
+    """Next-token cross entropy (mean over labels != -100) on the text
+    positions (the patch positions' logits are dropped), plus 0.01 x the
+    MoE auxiliary loss for a MoE config."""
     logits, aux = lm_forward(params, cfg, tokens, extra_embeds=extra_embeds,
                              enc_embeds=enc_embeds, attn_impl=attn_impl,
                              remat=remat)
+    if extra_embeds is not None:
+        logits = logits[:, extra_embeds.shape[1]:]
     mask = labels != -100
     safe = torch.where(mask, labels, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
@@ -354,7 +444,8 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
     return loss, aux
 
 
-def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:
+def init_decode_state(cfg, batch: int, max_len: int, device,
+                      enc_out: Optional[torch.Tensor] = None) -> dict:
     """Dense (non-paged) decode state: {"pos": int, "kv": {"k", "v":
     [L, B, C, KV, Dh], "k_pos": [L, B, C] int32 (-1 empty)}}. C is max_len,
     clipped to the sliding window for windowed configs (ring buffer). For
@@ -363,8 +454,12 @@ def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:
     the hybrid family (G groups of `per` mamba2 blocks): {"pos", "ssm":
     {"h": [G, per, B, N, nh, 64] fp32, "conv": [G, per, B, K-1, Din + 2N]},
     "kv": the ring caches above with G in place of L, one per occurrence
-    of the shared block}."""
+    of the shared block}. An encoder-decoder's state also holds "enc_out",
+    the encoder's output [B, Se, D], which it requires."""
     _check_ported(cfg)
+    if cfg.is_encoder_decoder and enc_out is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its decode "
+                         "state needs enc_out [B, S_enc, D]")
     dtype = getattr(torch, cfg.dtype)
 
     def stacked(st, lead):
@@ -387,13 +482,17 @@ def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "k_pos": torch.full(shape[:3], -1, dtype=torch.int32,
                             device=device)}
+    if cfg.is_encoder_decoder:
+        state["enc_out"] = enc_out
     return state
 
 
-def attn_block_decode(p: dict, x: torch.Tensor, cfg, cache: dict, pos: int):
+def attn_block_decode(p: dict, x: torch.Tensor, cfg, cache: dict, pos: int,
+                      enc_kv=None):
     """x: [B, 1, D]; cache: one layer's {"k", "v": [B, C, KV, Dh], "k_pos":
     [B, C]}, UPDATED IN PLACE: the token goes to slot pos % C (a ring for
-    sliding windows, linear otherwise), then attends. Returns x'."""
+    sliding windows, linear otherwise), then attends; enc_kv: the
+    encoder's (k, v) for cross attention, or None. Returns x'."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     c = cache["k"].shape[1]
@@ -409,7 +508,7 @@ def attn_block_decode(p: dict, x: torch.Tensor, cfg, cache: dict, pos: int):
                                       k_pos=cache["k_pos"], q_pos=pos)
         return o, None
 
-    return decode_layer_step(p, x, cfg, positions, attend)[0]
+    return decode_layer_step(p, x, cfg, positions, attend, enc_kv)[0]
 
 
 def lm_decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor, *,
@@ -448,9 +547,11 @@ def lm_decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor, *,
                                   {n: t[g] for n, t in kv.items()}, pos)
         return _head(params, cfg, x)[:, 0], dict(state, pos=pos + 1)
     hs = []
+    enc_out = state.get("enc_out")
     for i, lp in enumerate(params["layers"]):
         x = attn_block_decode(lp, x, cfg, {n: t[i] for n, t in kv.items()},
-                              pos)
+                              pos, None if enc_out is None
+                              else _enc_kv(lp, enc_out, cfg))
         if return_hiddens:
             hs.append(x)
     logits = _head(params, cfg, x)[:, 0]

@@ -125,11 +125,20 @@ class _Lane:
 
 
 class Server:
-    """Decode-only server for the dense and MoE attention decoders."""
+    """Decode-only server for the attention decoders: dense, MoE and the
+    VLM backbone (text only: M-RoPE with t == h == w). An encoder-decoder
+    is refused: the paged pool holds no encoder memory, and its decoder
+    without cross attention would be another model (JAX's server runs it
+    so, silently)."""
 
     def __init__(self, model, cfg: ServerConfig):
         if model.cfg.block_pattern:
             raise ValueError("paged serving targets attention archs")
+        if model.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{model.cfg.name} is an encoder-decoder: paged serving "
+                "has no encoder memory, and its decoder needs cross "
+                "attention over one")
         self.model = model
         self.cfg = cfg
         self.device = model.device

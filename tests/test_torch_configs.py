@@ -3,7 +3,7 @@ run on the ported dense path.
 
 Every registered config of the port, full and reduced, equals the JAX
 package's field for field (`dataclasses.asdict`), and the registries list
-the same names for those archs. The reduced glm4-9b, granite-20b and
+the same ten names. The reduced glm4-9b, granite-20b and
 granite-34b (granite: a GELU MLP, `mlp_gated=False`, and H=4 over one KV
 head) give JAX's `lm_forward` logits within 1e-4 in float32 on converted
 weights, and granite-20b's greedy `Server.generate` gives JAX's tokens."""
@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_archs as jlist_archs
 from repro.models import transformer as JT
 from repro.models.model import Model as JModel
 from repro.runtime.server import Server as JServer
@@ -32,12 +33,14 @@ from test_torch_pool import assert_state_equal
 from test_torch_server import KW
 
 PORTED = ["chatglm3-6b", "falcon-mamba-7b", "glm4-9b", "granite-20b",
-          "granite-34b", "mixtral-8x7b", "olmoe-1b-7b", "zamba2-2.7b"]
+          "granite-34b", "mixtral-8x7b", "olmoe-1b-7b", "qwen2-vl-72b",
+          "seamless-m4t-large-v2", "zamba2-2.7b"]
 DENSE = ["glm4-9b", "granite-20b", "granite-34b"]
 
 
 def test_registry_lists_the_ported_configs():
-    assert list(list_archs()) == PORTED
+    """The port registers all ten of the JAX registry's architectures."""
+    assert list(list_archs()) == PORTED == list(jlist_archs())
 
 
 @pytest.mark.parametrize("reduced", [False, True])

@@ -609,6 +609,77 @@ def test_flash_attention_bf16_views(cuda):
         assert (got.float() - want.float()).abs().max().item() < 2e-2
 
 
+# the prefill shapes of the encoder-decoder and VLM families (b, s, h, kv,
+# d, causal): seamless-m4t-large-v2's encoder (non-causal over 1024
+# frames) and decoder, and qwen2-vl-72b's GQA (REP 8) at D = 128
+FLASH_FAMILY_SHAPES = [(2, 1024, 16, 16, 64, False),
+                       (2, 4096, 16, 16, 64, True),
+                       (2, 4096, 64, 8, 128, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d,causal", FLASH_FAMILY_SHAPES)
+def test_flash_attention_family_shapes(cuda, b, s, h, kv, d, causal):
+    """bf16 on the tensor cores within 2e-2 of the plain version."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _flash_inputs(b, s, h, kv, d, seed=h + d))
+    got, variant = _variant_run(
+        lambda: tops.flash_attention(q, k, v, causal=causal))
+    want = tref.flash_attention(q, k, v, causal=causal)
+    assert variant == tops.TENSOR_CORES
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-72b"])
+def test_encdec_and_vlm_on_card_match_cpu(cuda, monkeypatch, arch):
+    """The reduced encoder-decoder and VLM, float32, attn_impl "flash", on
+    the card (flash_attention's CUDA-core kernel for fp32) against the CPU
+    (its plain version): one flash_attention launch per encoder and
+    decoder layer and no other kernel in a prefill (with frame or patch
+    embeddings), none in a decode step; logits within 1e-4 (fp32 sums in
+    another order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    m_cpu = Model(cfg, attn_impl="flash", device="cpu")
+    m_gpu = Model(cfg, attn_impl="flash", device="cuda")
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = _to(p_cpu, cuda)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 12)))}
+    key = "enc_embeds" if cfg.is_encoder_decoder else "extra_embeds"
+    n = cfg.encoder_seq_len if cfg.is_encoder_decoder else 4
+    batch[key] = torch.from_numpy(rng.normal(size=(2, n, cfg.d_model))
+                                  .astype(np.float32))
+    tops.reset_launches()
+    lg = m_gpu.prefill(p_gpu, _to(batch, cuda))
+    n_attn = cfg.num_layers + (cfg.num_encoder_layers
+                               if cfg.is_encoder_decoder else 0)
+    assert tops.launches["flash_attention"] == n_attn
+    assert sum(tops.launches.values()) == n_attn
+    lc = m_cpu.prefill(p_cpu, batch)
+    assert (lc - lg.cpu()).abs().max().item() < 1e-4
+    enc = None
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.transformer import encoder_forward
+        enc = encoder_forward(p_cpu, cfg, batch["enc_embeds"])
+    s_cpu = m_cpu.init_decode_state(2, 8, enc_out=enc)
+    s_gpu = m_gpu.init_decode_state(2, 8, enc_out=None if enc is None
+                                    else enc.to(cuda))
+    for t in range(4):
+        tops.reset_launches()
+        tok = batch["tokens"][:, t]
+        dg, s_gpu = m_gpu.decode_step(p_gpu, s_gpu, tok.to(cuda))
+        assert sum(tops.launches.values()) == 0
+        dc, s_cpu = m_cpu.decode_step(p_cpu, s_cpu, tok)
+        assert (dc - dg.cpu()).abs().max().item() < 1e-4
+
+
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():

@@ -39,7 +39,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.checkpoint.ckpt", "repro_torch.runtime.trainer",
             "repro_torch.launch.train", "repro_torch.data.structures",
             "repro_torch.data.crestkv",
-            "repro_torch.models.embedding"} <= set(mods)
+            "repro_torch.models.embedding",
+            "repro_torch.configs.shapes",
+            "repro_torch.configs.seamless_m4t_large_v2",
+            "repro_torch.configs.qwen2_vl_72b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('\\n'.join(sorted(sys.modules)))\n")

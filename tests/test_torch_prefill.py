@@ -189,8 +189,11 @@ def test_unported_options_raise():
     # another name raises
     with pytest.raises(ValueError, match="remat"):
         TT.lm_forward(tp, tm.cfg, toks, remat="nothing_saveable")
-    with pytest.raises(NotImplementedError, match="extra_embeds"):
-        TT.lm_forward(tp, tm.cfg, toks, extra_embeds=torch.zeros(B, 2, 64))
+    # extra_embeds (the VLM stub's patch embeddings) are prepended, for
+    # any attention model, as in JAX (tests/test_torch_mrope.py holds the
+    # VLM against JAX)
+    lg, _ = TT.lm_forward(tp, tm.cfg, toks, extra_embeds=torch.zeros(B, 2, 64))
+    assert lg.shape == (B, toks.shape[1] + 2, tm.cfg.vocab_size)
     with pytest.raises(ValueError, match="attn_impl"):
         TModel(tm.cfg, attn_impl="ring", device="cpu")
     with pytest.raises(ValueError, match="S=200"):
