@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--access-scan-was PATH] [--migrate-was PATH]
                           [--engine-only | --hybrid-only | --train-only |
                            --crest-only | --families-only]
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \
+        chip_smoke.py --dist-only [--device cpu]
 
 Run from the root of a checkout (it puts `src` on sys.path itself). With
 --access-scan-was, phase 3 also builds an earlier `access_scan.cu` (its C
@@ -251,7 +253,51 @@ flash_attention checks and phase 14; none prints a result line. In order:
      in (qwen2-vl also with the grid positions, where blockwise masks by
      the temporal stream and is no reference), and the float32
      teacher-forced decode of B=2 x 64 tokens against their prefill
-     within 1e-3 of the largest |logit|.
+     within 1e-3 of the largest |logit|;
+ 15. the distributed layer (`launch/mesh.py`, `launch/shardings.py`,
+     `optim/compression.py`, `ckpt.restore(shardings=)`; no kernel of its
+     own) on a world-1 NCCL group and its (1, 1) host mesh: (a)
+     `compress_int8` / `decompress_int8` on the card equal the CPU bit for
+     bit at sizes that are and are not multiples of the 256-element block
+     (one block of zeros), `compressed_allreduce` over the mesh's data
+     axis returns the local decompression and the residual; (b)
+     qwen2-vl-72b at full width and 2 layers in fp32 (TF32 off),
+     blockwise attention: the prefill of params, patches, tokens and
+     [3, B, S] grid positions laid out as DTensors by the sharding rules
+     equals the plain-tensor prefill bit for bit (B=2 x S=4096), and so
+     does the bf16 prefill through flash_attention (the kernel on the
+     local tensors, 2 launches, on the tensor cores); (c) that
+     model in bf16 saved whole and restored with its param specs: every
+     leaf equal, laid out by its spec.
+
+--dist-only runs on four cards, one process each, under `python3 -m
+torch.distributed.run --standalone --nproc-per-node 4` (the environment
+gives ranks and rendezvous), builds only the kernel its path runs and
+prints on rank 0 only:
+(a) phase 15 (a) over the 4-rank data axis of a (4, 1) mesh (ones sum to
+exactly 4, seeded grads to the sum of the four decompressions within 4
+fp32 ulps); (b) phase 15 (b) on the (2, 2) ("data", "model") mesh, held
+within 1e-4 of the largest |logit| to the one-card prefill, then 4
+teacher-forced decode steps with the state laid out by
+`decode_state_shardings` (the cache length over "model"); the same
+2-layer prefill through flash_attention on each card's batch and head
+shard against one card's flash prefill, in fp32 within 1e-4 (the CUDA
+cores) and in bf16 within DIST_BF16_TOL (every launch on the tensor
+cores); (c) qwen2-vl-72b at all 80 layers in bf16, every matrix split
+over both axes of the (2, 2) mesh (DTensor all-reduces partial sums of
+activations; it does not gather the weights),
+drawn leaf by leaf on every rank from a generator seeded 0, each rank
+keeping its shard: a B=2 x S=4096 prefill (256 patches, 3840 tokens, grid
+positions) through flash_attention (one launch a layer on each card, on
+its batch and head shard, all on the tensor cores; rank 0 builds the two
+flash sources before (b)'s flash checks),
+4 decode steps from an empty cache, finite logits; ms a
+prefill, tok/s, ms a decode step, each card's peak memory, the
+collectives of a prefill and of a decode step by kind and bytes, and one
+more prefill profiled on each card (busy share, device ms in NCCL
+kernels, GEMMs and the rest). With
+--device cpu it rehearses on the CPU with gloo at the reduced config.
+Its numbers go to build/chip_smoke_dist.json.
 
 It exits non-zero, with no result line, if there is no CUDA device, if it
 is not run from a checkout, or if any phase fails. The last lines of its
@@ -275,8 +321,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12, "int32": 67e12}
 SERVE = dict(batch=8, max_len=512, block_tokens=16, collect_every=8)
 N_REQUESTS, MAX_NEW = 16, 32
 PREFILL_B, PREFILL_S = 2, 4096   # cut from prefill_32k (B=32, S=32768)
@@ -320,7 +364,9 @@ LIBRARY = {
 
 
 def log(*a):
-    print(*a, flush=True)
+    """Print (only on rank 0 of a `torch.distributed.run` launch)."""
+    if os.environ.get("RANK", "0") == "0":
+        print(*a, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -370,7 +416,10 @@ def _fmt(t: dict) -> str:
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    """The least time (ms) of the work on the card, and what bounds it:
+    the H100's data-sheet HBM rate and peak op rates (`launch/mesh.py`)."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_OPS
+    t_bytes = bytes_moved / HBM_BW * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1042,7 +1091,8 @@ def check_flash_attention(dev, mc, olmoe, zamba, enc, vlm):
     zamba2-2.7b's shared block, H = KV = 32 at D = 80,
     seamless-m4t-large-v2's encoder, non-causal over its 1024 frames, and
     decoder, H = KV = 16 at D = 64, and qwen2-vl-72b's, H = 64 over KV = 8
-    at D = 128), the
+    at D = 128, also its shard on a card of the (2, 2) mesh of
+    --dist-only, B = 1 and H = 32 over KV = 4), the
     tensor-core kernel's bf16 edges, and bf16 views of a
     fused projection (the tensor cores) and one TMA cannot describe (the
     CUDA cores). bf16 cases other than that view must run on the tensor
@@ -1087,8 +1137,13 @@ def check_flash_attention(dev, mc, olmoe, zamba, enc, vlm):
                     + enc_shape[2:], False),
                    ("seamless", enc_shape, True),
                    ("qwen2_vl", vlm_shape, True)]
+    # the shard each card of --dist-only (c) runs: qwen2-vl's batch and
+    # heads halved on the (2, 2) mesh
+    vlm_rank = (PREFILL_B // 2, PREFILL_S, vlm.num_heads // 2,
+                vlm.num_kv_heads // 2, vlm.resolved_head_dim)
     cases += [(shape, causal, 0, dtype, f"prefill {name}")
               for name, shape, causal in [("", main, True)] + more_shapes
+              + [("qwen2_vl (2, 2) shard", vlm_rank, True)]
               for dtype in (torch.bfloat16, torch.float32)]
     cases += [(e[:5], e[5], e[6], torch.bfloat16, "edge")
               for e in FLASH_TC_EDGES]
@@ -4167,6 +4222,554 @@ def families_path(dev):
                 seconds=dict(a=t[1] - t[0], b=t[2] - t[1], c=t[3] - t[2]))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed layer (one card), and --dist-only (four)
+# ---------------------------------------------------------------------------
+DIST_CUT = 2            # (b): layers of the fp32 model held bit for bit
+DIST_DECODE = 4         # decode steps of --dist-only's (b) and (c)
+# --dist-only (b): the bf16 flash prefill on the (2, 2) mesh against one
+# card's, of the largest |logit| (phase 6's bf16 gate for kernel vs plain;
+# the partial sums of the sharded products round apart in bf16)
+DIST_BF16_TOL = 5e-2
+FLASH_BUILD = ("flash_attention", "flash_attention_wgmma")
+# compress_int8 on the card against the CPU: a size that is not a multiple
+# of the 256-element block, several blocks, and a block of zeros
+COMPRESS_SHAPES = ((1000,), (64, 256), (3, 7, 129))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world_one(dev):
+    """A world-1 process group (NCCL on the card, gloo on the CPU; tcp on
+    localhost), destroyed on exit."""
+    import torch
+    import torch.distributed as dist
+    cuda = dev.type == "cuda"
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device())
+        if cuda else None)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _close(a, b, ulps: int, mag) -> bool:
+    """|a - b| within `ulps` fp32 ulps of `mag` (e.g. the sum of the
+    addends' magnitudes, which bounds a sum's rounding) everywhere."""
+    import torch
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag))
+                                          - 23), torch.zeros_like(mag))
+    return bool(((a - b).abs() <= ulps * ulp).all())
+
+
+def compression_check(mesh, dev, world: int = 1) -> dict:
+    """(a) `compress_int8` / `decompress_int8` on the card equal the CPU bit
+    for bit (q, scales, values) at COMPRESS_SHAPES, one of them with a
+    block of zeros; `compressed_allreduce` over the mesh's "data" axis of
+    `world` ranks: ones sum to exactly `world`, seeded per-rank grads to
+    the sum of every rank's decompression within 4 fp32 ulps of the
+    addends' summed magnitude (the order of the sum is NCCL's), and the
+    error feedback is each rank's residual."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim import compression as C
+    rank = dist.get_rank()
+    out = {}
+    for shape in COMPRESS_SHAPES:
+        g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            shape).astype(np.float32))
+        if shape == (64, 256):
+            g[3] = 0.0                      # an all-zero block
+        qc, sc = C.compress_int8(g)
+        qd, sd = C.compress_int8(g.to(dev))
+        same = (torch.equal(qc, qd.cpu()) and torch.equal(sc, sd.cpu())
+                and torch.equal(C.decompress_int8(qc, sc, shape,
+                                                  torch.float32),
+                                C.decompress_int8(qd, sd, shape,
+                                                  torch.float32).cpu()))
+        if not same:
+            raise AssertionError(f"compress_int8 {shape}: card != CPU")
+        out[str(shape)] = "card == cpu"
+    grads = {"a": torch.ones((5, 300), device=dev),
+             "b": torch.ones(7, device=dev, dtype=torch.bfloat16)}
+    summed, err = C.compressed_allreduce(grads, (mesh, "data"))
+    for name, v in summed.items():
+        if not bool((v == world).all()):
+            raise AssertionError(f"ones summed to {v.unique()} on {name}")
+
+    def grad(r):
+        g = np.random.default_rng(100 + r).standard_normal((3, 1000))
+        return {"w": torch.from_numpy(g.astype(np.float32)).to(dev)}
+    mine = grad(rank)
+    red, new_err = C.compressed_allreduce(mine, (mesh, "data"))
+    parts = [C.decompress_int8(*C.compress_int8(grad(r)["w"]), (3, 1000),
+                               torch.float32) for r in range(world)]
+    want = sum(parts)
+    local = C.decompress_int8(*C.compress_int8(mine["w"]), (3, 1000),
+                              torch.float32)
+    if not _close(red["w"], want, 4, sum(p.abs() for p in parts)):
+        raise AssertionError("compressed_allreduce: sum past 4 ulps, max "
+                             f"{(red['w'] - want).abs().max().item()}")
+    if not torch.equal(new_err["w"], mine["w"] - local):
+        raise AssertionError("compressed_allreduce: error != residual")
+    out["allreduce"] = dict(world=world, ones="exact", sum_max_err=(
+        red["w"] - want).abs().max().item(), error="residual")
+    log(f"phase 15 (a) compression over {world} rank(s): {out}")
+    return out
+
+
+def _vlm_batch(cfg, dev, b, s, seed):
+    """A VLM prefill batch (patches + tokens) and its [3, b, s] grid
+    positions."""
+    return _prompts(cfg, dev, seed, b=b, s=s), \
+        _grid_positions(cfg, dev, b=b, s=s)
+
+
+def _sharded_prefill(model, params, batch, pos, mesh):
+    """lm_forward (model's attn_impl) of the DTensor params on the batch
+    and grid positions laid out by `shardings.py` (the positions' batch
+    dim over "data")."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import transformer as T
+    db = sh.distribute(batch, mesh, sh.batch_shardings(mesh, batch),
+                       src_data_rank=None)
+    dpos = sh.distribute_leaf(pos, mesh, sh.P(None, "data", None),
+                              src_data_rank=None)
+    with implicit_replication():
+        return T.lm_forward(params, model.cfg, db["tokens"],
+                            extra_embeds=db["extra_embeds"],
+                            positions=dpos, attn_impl=model.attn_impl)[0]
+
+
+def _sharded_decode(model, params, mesh, b, max_len, tokens):
+    """Teacher-forced decode of tokens [b, n] from a fresh state laid out
+    by `decode_state_shardings`: the DTensor logits of each step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import shardings as sh
+    st = model.init_decode_state(b, max_len)
+    st = sh.distribute(st, mesh, sh.decode_state_shardings(
+        mesh, st, model.cfg), src_data_rank=None)
+    out = []
+    with implicit_replication():
+        for t in range(tokens.shape[1]):
+            tok = sh.distribute_leaf(tokens[:, t].contiguous(), mesh,
+                                     sh.P("data"), src_data_rank=None)
+            lg, st = model.decode_step(params, st, tok)
+            out.append(lg)
+    return out
+
+
+def dist_vlm_small(mesh, dev, b=PREFILL_B, s=PREFILL_S, exact=True,
+                   reduced=False):
+    """qwen2-vl-72b at DIST_CUT layers (the reduced config with `reduced`),
+    fp32 (TF32 off), blockwise attention: the prefill of DTensor params
+    and inputs laid out by `shardings.py` against the plain-tensor
+    prefill of the same weights (initialised whole on each card, then
+    distributed), bit for bit with `exact` (a (1, 1) mesh), else within
+    1e-4 of the largest |logit|; without `exact` also DIST_DECODE decode
+    steps against the plain decode, to the same tolerance."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.model import Model
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(VLM_ARCH, reduced=True),
+                              dtype="float32") if reduced else \
+        _cut(VLM_ARCH, layers=DIST_CUT, dtype="float32")
+    model = Model(cfg, attn_impl="blockwise", device=str(dev))
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch, pos = _vlm_batch(cfg, dev, b, s, seed=0)
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        plain = T.lm_forward(params, cfg, batch["tokens"],
+                             extra_embeds=batch["extra_embeds"],
+                             positions=pos)[0]
+        dparams = sh.distribute(params, mesh, sh.param_shardings(
+            mesh, params), src_data_rank=None)
+        sharded = _sharded_prefill(model, dparams, batch, pos,
+                                   mesh).full_tensor()
+    err = (sharded - plain).abs().max().item()
+    top = plain.abs().max().item()
+    res = dict(layers=cfg.num_layers, batch=b, seq_len=s,
+               mesh=list(mesh.shape), prefill_max_err=err,
+               max_abs_logit=top, bit_for_bit=bool(torch.equal(sharded,
+                                                              plain)))
+    del sharded, plain
+    if exact and not res["bit_for_bit"]:
+        raise AssertionError(f"sharded prefill != plain: max {err}")
+    if not exact and not err <= 1e-4 * top:
+        raise AssertionError(f"sharded prefill: {err} > 1e-4 x {top}")
+    if not exact:
+        toks = batch["tokens"][:, :DIST_DECODE]
+        with torch.no_grad():
+            dec = _sharded_decode(model, dparams, mesh, b, 64, toks)
+            ref = _decode_logits(model, params, toks)
+        derr = max((d.full_tensor() - ref[:, i]).abs().max().item()
+                   for i, d in enumerate(dec))
+        dtop = ref.abs().max().item()
+        res.update(decode_steps=DIST_DECODE, decode_max_err=derr,
+                   decode_max_abs_logit=dtop)
+        if not derr <= 1e-4 * dtop:
+            raise AssertionError(f"sharded decode: {derr} > 1e-4 x {dtop}")
+    log(f"phase 15 (b) {VLM_ARCH} {cfg.num_layers} layers fp32 on a "
+        f"{tuple(mesh.shape)} mesh, B={b} S={s}: {res}")
+    return res, params
+
+
+def dist_flash_small(mesh, dev, dtype: str, tol, b=PREFILL_B, s=PREFILL_S,
+                     reduced=False) -> dict:
+    """qwen2-vl-72b at DIST_CUT layers (the reduced config with `reduced`)
+    in `dtype` (TF32 off), attn_impl="flash": the prefill of DTensor
+    params and inputs laid out by `shardings.py`, where each rank runs the
+    flash kernel on its batch and head shard (`models/spmd.py`), against
+    the plain-tensor prefill through the same kernel on this card; bit
+    for bit with `tol` None, else within `tol` of the largest |logit|. On
+    the card the sharded prefill launches the kernel exactly once a layer,
+    bf16 on the tensor cores (the variant the shards' views must get) and
+    fp32 on the CUDA cores."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(VLM_ARCH, reduced=True),
+                              dtype=dtype) if reduced else \
+        _cut(VLM_ARCH, layers=DIST_CUT, dtype=dtype)
+    model = Model(cfg, attn_impl="flash", device=str(dev))
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch, pos = _vlm_batch(cfg, dev, b, s, seed=0)
+    cuda = dev.type == "cuda"
+    with torch.no_grad():
+        plain = T.lm_forward(params, cfg, batch["tokens"],
+                             extra_embeds=batch["extra_embeds"],
+                             positions=pos, attn_impl="flash")[0]
+        dparams = sh.distribute(params, mesh, sh.param_shardings(
+            mesh, params), src_data_rank=None)
+        del params
+        if cuda:
+            torch.cuda.synchronize()
+        ops.reset_launches()
+        sharded = _sharded_prefill(model, dparams, batch, pos, mesh)
+        if cuda:
+            torch.cuda.synchronize()
+        launches, variants = dict(ops.launches), dict(ops.flash_variants)
+        sharded = sharded.full_tensor()
+    # on CPU tensors the wrapper runs the plain version: no launch
+    _only(launches, {"flash_attention": cfg.num_layers if cuda else 0})
+    want = ops.TENSOR_CORES if dtype == "bfloat16" else ops.CUDA_CORES
+    if cuda and variants[want] != cfg.num_layers:
+        raise AssertionError(f"sharded flash ran {variants}: want "
+                             f"{cfg.num_layers} on {want}")
+    err = (sharded.float() - plain.float()).abs().max().item()
+    top = plain.float().abs().max().item()
+    res = dict(layers=cfg.num_layers, dtype=dtype, batch=b, seq_len=s,
+               mesh=list(mesh.shape), launches=launches["flash_attention"],
+               variants={k: v for k, v in variants.items() if v},
+               prefill_max_err=err, max_abs_logit=top, tolerance=tol,
+               bit_for_bit=bool(torch.equal(sharded, plain)))
+    del sharded, plain, dparams
+    if tol is None and not res["bit_for_bit"]:
+        raise AssertionError(f"sharded flash prefill != plain: max {err}")
+    if tol is not None and not err <= tol * top:
+        raise AssertionError(f"sharded flash prefill: {err} > {tol} x {top}")
+    log(f"phase 15 (b) {VLM_ARCH} {cfg.num_layers} layers {dtype}, flash on "
+        f"a {tuple(mesh.shape)} mesh, B={b} S={s}: {res}")
+    return res
+
+
+def dist_restore(mesh, dev) -> dict:
+    """(c) (b)'s model in its published dtype (bf16 weights, fp32 norms;
+    DIST_CUT layers, 8.5 GB) saved whole, then restored with its param
+    specs on the mesh: every leaf equal to the saved one and laid out by
+    its spec."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.dryrun import spec_pairs
+    from repro_torch.models.model import Model
+    params = Model(_cut(VLM_ARCH, layers=DIST_CUT), device=str(dev)).init(
+        torch.Generator(device=dev).manual_seed(0))
+    specs = sh.param_shardings(mesh, params)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(root, 1, params)
+        t1 = time.perf_counter()
+        got = ckpt.restore(root, 1, params, shardings=specs, mesh=mesh)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    names, restored = tree_lib.flatten_with_paths(got)
+    bad = [n for n, a, (b, spec) in zip(names, restored,
+                                        spec_pairs(params, specs))
+           if not (torch.equal(a.full_tensor(), b)
+                   and a.placements == sh.placements(mesh, spec))]
+    if bad:
+        raise AssertionError(f"restored leaves differ: {bad[:5]}")
+    res = dict(leaves=len(list(_leaves(params))), save_s=t1 - t0,
+               restore_s=t2 - t1, equal=True)
+    log(f"phase 15 (c) restore with placements: {res}")
+    return res
+
+
+def dist_path(dev):
+    """Phase 15 on one card: a world-1 NCCL group and the (1, 1) host
+    mesh; (a) `compression_check`, (b) `dist_vlm_small` and, in bf16,
+    `dist_flash_small` bit for bit, (c) `dist_restore`."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    with world_one(dev):
+        mesh = make_host_mesh(device_type=dev.type)
+        out = dict(mesh=list(mesh.shape))
+        out["compression"] = compression_check(mesh, dev)
+        out["prefill"], params = dist_vlm_small(mesh, dev)
+        del params
+        torch.cuda.empty_cache()
+        out["flash"] = dist_flash_small(mesh, dev, "bfloat16", None)
+        torch.cuda.empty_cache()
+        out["restore"] = dist_restore(mesh, dev)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 in {out['seconds']:.1f} s")
+    return out
+
+
+def _collectives(fn):
+    """fn()'s result and the collectives DTensor issued in it, by kind:
+    {kind: {"ops": n, "bytes": operand bytes}} (`dryrun.cost_mode`)."""
+    from repro_torch.launch import dryrun
+    with dryrun.counting(dryrun.cost_mode()) as cost:
+        out = fn()
+    return out, dict(ops=cost.collective_ops, bytes={
+        k: v for k, v in cost.collective_kinds.items() if v})
+
+
+def _rank_profile(fn) -> dict:
+    """fn() once under torch.profiler on this rank; every rank calls it
+    once, and a trace that is not whole (`trace_events`) is reported as
+    such, not taken again (a retake on one rank would unpair the
+    collectives): the wall ms, the device's busy share of it, device ms
+    by kind (NCCL kernels, GEMMs: cuBLAS / CUTLASS kernels, the rest;
+    streams overlap, so the kinds may sum past the busy time) and the
+    kernel count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        open_trace()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        close_trace()
+    events, whole = trace_events(prof)
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds = collections.Counter()
+    for e in dev:
+        name = e.name.lower()
+        kind = "nccl" if "nccl" in name else "gemm" if any(
+            k in name for k in ("gemm", "xmma", "cutlass", "nvjet")) \
+            else "other"
+        kinds[kind] += e.time_range.elapsed_us() / 1e3
+    busy = _busy_us([(e.time_range.start, e.time_range.end)
+                     for e in dev]) / 1e3
+    return dict(wall_ms=wall_ms, busy_share=busy / wall_ms,
+                device_ms=dict(kinds), kernels=len(dev), whole=whole)
+
+
+def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
+    """--dist-only (c): qwen2-vl-72b at all its layers, bf16, every matrix
+    split over both axes of the (2, 2) mesh by the sharding rules (DTensor
+    all-reduces activation partial sums; no weight is gathered): the
+    weights drawn leaf by leaf on every rank from a generator seeded 0,
+    each rank keeping its shard (`param_placer`); prefill of b x s
+    (patches + tokens, [3, B, S] grid positions) with attn_impl="flash"
+    as phase 14 (b) (each rank launches the kernel on its batch and head
+    shard: exactly one launch a layer, on the tensor cores), timed after
+    a warm-up, finite logits; DIST_DECODE decode steps from an empty
+    cache of s + 8 slots, timed; each card's peak memory; the collectives
+    of one prefill and of one decode step by kind; one more prefill
+    profiled on every card (`_rank_profile`)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.model import Model
+    cfg = get_config(VLM_ARCH, reduced=reduced)
+    model = Model(cfg, attn_impl="flash", device=str(dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        place=sh.param_placer(mesh))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(params))
+    local_bytes = sum(p.to_local().numel() * p.element_size()
+                      for p in _leaves(params))
+    batch, pos = _vlm_batch(cfg, dev, b, s, seed=0)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+    walls = []
+    with torch.no_grad():
+        for _ in range(2):
+            sync()
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            logits = _sharded_prefill(model, params, batch, pos, mesh)
+            sync()
+            walls.append((time.perf_counter() - t1) * 1e3)
+            # on CPU tensors the wrapper runs the plain version: no launch
+            _only(dict(ops.launches), {"flash_attention": cfg.num_layers
+                                       if dev.type == "cuda" else 0})
+            if dev.type == "cuda" and \
+                    ops.flash_variants[ops.TENSOR_CORES] != cfg.num_layers:
+                raise AssertionError(f"flash variants {ops.flash_variants}"
+                                     f": want {cfg.num_layers} on "
+                                     f"{ops.TENSOR_CORES}")
+            finite = torch.isfinite(logits.to_local()).all().float()
+            del logits
+        dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+        if finite.item() != 1.0:
+            raise AssertionError("80-layer prefill logits are not finite")
+        _, coll_prefill = _collectives(lambda: _sharded_prefill(
+            model, params, batch, pos, mesh))
+        profiles = [None] * dist.get_world_size()
+        if dev.type == "cuda":
+            dist.all_gather_object(profiles, _rank_profile(
+                lambda: _sharded_prefill(model, params, batch, pos, mesh)))
+        toks = batch["tokens"][:, :DIST_DECODE + 1]
+        steps = []
+        st = model.init_decode_state(b, s + 8)
+        st = sh.distribute(st, mesh, sh.decode_state_shardings(
+            mesh, st, cfg), src_data_rank=None)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            for t in range(DIST_DECODE + 1):
+                tok = sh.distribute_leaf(toks[:, t].contiguous(), mesh,
+                                         sh.P("data"), src_data_rank=None)
+                sync()
+                t1 = time.perf_counter()
+                if t < DIST_DECODE:
+                    lg, st = model.decode_step(params, st, tok)
+                else:
+                    (lg, st), coll_decode = _collectives(
+                        lambda: model.decode_step(params, st, tok))
+                sync()
+                steps.append((time.perf_counter() - t1) * 1e3)
+                ok = torch.isfinite(lg.to_local()).all().float()
+                dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+                if ok.item() != 1.0:
+                    raise AssertionError("decode logits are not finite")
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    res = dict(
+        arch=VLM_ARCH, layers=cfg.num_layers, dtype=cfg.dtype,
+        mesh=list(mesh.shape), params=n_params,
+        weight_bytes_per_card=local_bytes, init_s=init_s, batch=b,
+        seq_len=s, ms_per_prefill=walls[-1], prefill_runs_ms=walls,
+        tokens_per_s=b * s / (walls[-1] / 1e3),
+        ms_per_decode_step=sum(steps[1:DIST_DECODE]) / (DIST_DECODE - 1),
+        decode_steps_ms=steps[:DIST_DECODE], decode_cache_slots=s + 8,
+        peak_memory_bytes=peaks, prefill_profile_by_rank=profiles,
+        collectives_prefill=coll_prefill,
+        collectives_decode_step=coll_decode)
+    log(f"--dist-only (c) {VLM_ARCH} {cfg.num_layers} layers {cfg.dtype}, "
+        f"{n_params / 1e9:.2f} B params, {local_bytes / 2 ** 30:.2f} GiB a "
+        f"card: {json.dumps(res, default=str)}")
+    return res
+
+
+def dist_only(device: str) -> int:
+    """--dist-only, one process per card under `torch.distributed.run`
+    (RANK, LOCAL_RANK, WORLD_SIZE and the rendezvous from its
+    environment): (a) `compression_check` over the 4-rank data axis of a
+    (4, 1) mesh, (b) `dist_vlm_small` and `dist_flash_small` (fp32, bf16)
+    on the (2, 2) mesh, (c) `dist_full`. With device "cpu" (a
+    rehearsal: gloo, the reduced config, B=2 x S=64) the same on the CPU.
+    Only rank 0 prints; the only kernel built is flash_attention, which
+    (b) and (c) run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    cpu = device == "cpu"
+    if not cpu and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cpu") if cpu else torch.device("cuda", local)
+    if not cpu:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            device_id=None if cpu else dev)
+    t0 = time.perf_counter()
+    try:
+        world = dist.get_world_size()
+        if world != 4:
+            raise ValueError(f"--dist-only runs on 4 ranks, not {world}")
+        if not cpu:
+            log(f"device: {torch.cuda.get_device_name(dev)} x "
+                f"{torch.cuda.device_count()}; nvidia-smi: {nvidia_smi()}; "
+                f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+        kind = "cpu" if cpu else "cuda"
+        out = dict(compression=compression_check(
+            make_host_mesh(1, kind), dev, world))
+        mesh = make_host_mesh(2, kind)
+        kw = dict(b=2, s=64, reduced=True) if cpu else {}
+        out["small"], params = dist_vlm_small(mesh, dev, exact=False, **kw)
+        del params
+        if not cpu:
+            torch.cuda.empty_cache()
+            if dist.get_rank() == 0:      # the one kernel of this path
+                from repro_torch.kernels import build
+                build.build_all(FLASH_BUILD)
+            dist.barrier()
+        out["flash_fp32"] = dist_flash_small(mesh, dev, "float32", 1e-4,
+                                             **kw)
+        out["flash_bf16"] = dist_flash_small(mesh, dev, "bfloat16",
+                                             DIST_BF16_TOL, **kw)
+        if not cpu:
+            torch.cuda.empty_cache()
+        out["full"] = dist_full(mesh, dev, **kw)
+        out["seconds"] = time.perf_counter() - t0
+        if dist.get_rank() == 0:
+            out_dir = ROOT / "build"
+            out_dir.mkdir(exist_ok=True)
+            (out_dir / "chip_smoke_dist.json").write_text(
+                json.dumps(out, indent=1, default=str))
+        log(f"total {out['seconds']:.1f} s (--dist-only: no result line)")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
@@ -4196,7 +4799,20 @@ def main(argv=None) -> int:
     only.add_argument("--families-only", action="store_true",
                       help="run phases 1, 2, phase 3's flash_attention "
                       "checks and phase 14 only, and print no result line")
+    only.add_argument("--dist-only", action="store_true",
+                      help="under `python3 -m torch.distributed.run "
+                      "--standalone --nproc-per-node 4`: the distributed "
+                      "layer on four cards (compressed all-reduce, a (2, "
+                      "2) mesh, qwen2-vl-72b at all 80 layers); builds "
+                      "flash_attention only, no result line")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="--dist-only's device: cpu rehearses it with gloo "
+                    "at the reduced config")
     args = ap.parse_args(argv)
+    if args.dist_only:
+        return dist_only(args.device)
+    if args.device != "cuda":
+        ap.error("--device cpu is for --dist-only")
     # phase 12 runs under deterministic algorithms, whose cuBLAS needs a
     # fixed workspace, set before CUDA starts (the size PyTorch picks by
     # default on Hopper)
@@ -4332,6 +4948,8 @@ def main(argv=None) -> int:
     crest = crest_path(dev)
     stamp(14)
     families = families_path(dev)
+    stamp(15)
+    distributed = dist_path(dev)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
     main_launches["flash_attention"] = \
@@ -4463,7 +5081,7 @@ def main(argv=None) -> int:
         "falcon_mamba": mamba, "olmoe": olmoe, "engine": engine,
         "zamba2": hybrid, "train": train, "crest": crest,
         "encdec": families["encdec"], "vlm": families["vlm"],
-        "families_seconds": families["seconds"],
+        "families_seconds": families["seconds"], "dist": distributed,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -116,12 +116,20 @@ def _decode(a: np.ndarray, dtype: str, shape) -> torch.Tensor:
                             .reshape(shape).copy())
 
 
-def restore(path: str, step: int, like: Any) -> Any:
+def restore(path: str, step: int, like: Any, *, shardings: Any = None,
+            mesh: Any = None) -> Any:
     """The checkpoint of `step` as a tree of `like`'s structure, whose
     leaf names must match the stored ones. Each leaf is a tensor of the
     stored dtype, on the device of `like`'s leaf when that is a tensor
     and on the CPU otherwise (e.g. a `like` of the JAX package's layout
-    with numpy leaves, for `convert.from_jax`)."""
+    with numpy leaves, for `convert.from_jax`).
+
+    With `shardings` (a spec tree of `like`'s structure from
+    `launch/shardings.py`, or one `shardings.P` for every leaf) and the
+    restoring job's DeviceMesh `mesh`, each leaf becomes a DTensor laid
+    out by its spec on the mesh's devices: the elastic re-shard point.
+    The stored arrays are whole, so each rank takes its shard of its own
+    copy, whatever mesh wrote the checkpoint."""
     final = os.path.join(path, f"step_{step}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -130,15 +138,23 @@ def restore(path: str, step: int, like: Any) -> Any:
         raise ValueError("checkpoint/model structure mismatch: "
                          f"{len(manifest['names'])} stored leaves, "
                          f"{len(names)} asked for")
+    if shardings is not None and mesh is None:
+        raise ValueError("restore with shardings needs the mesh")
     leaves = []
     with np.load(os.path.join(final, "shard_0.npz")) as data:
         for i, ref in enumerate(like_leaves):
             t = _decode(data[f"leaf_{i}"], manifest["dtypes"][i],
                         manifest["shapes"][i])
-            if isinstance(ref, torch.Tensor):
+            if isinstance(ref, torch.Tensor) and shardings is None:
                 t = t.to(ref.device)
             leaves.append(t)
-    return tree_lib.unflatten(like, leaves)
+    out = tree_lib.unflatten(like, leaves)
+    if shardings is None:
+        return out
+    from repro_torch.launch import shardings as sh
+    if isinstance(shardings, sh.P):
+        shardings = tree_lib.unflatten(like, [shardings] * len(leaves))
+    return sh.distribute(out, mesh, shardings, src_data_rank=None)
 
 
 def restore_extra(path: str, step: int) -> Dict:

@@ -6,8 +6,8 @@ its own with `nvcc` for `sm_90a` into
 `build/kernels/<name>-<digest>.so` under the repository root (the digest
 covers the source and the flags, so an edited source is rebuilt).
 `build_all` starts one `nvcc` per source that is not built yet, all at
-once, and waits for them; the first kernel call builds whatever is
-missing. Nothing is built or loaded when this module is imported.
+once, and waits for them; a kernel's first call builds its own source if
+it is missing. Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -70,13 +70,13 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every kernel not built yet, one nvcc per source, in parallel.
-    Returns {name: ptxas output (registers, shared memory, spills)}; raises
-    if any compile fails."""
+def build_all(names=SOURCES) -> Dict[str, str]:
+    """Compile every kernel of `names` (by default all) not built yet, one
+    nvcc per source, in parallel. Returns {name: ptxas output (registers,
+    shared memory, spills)}; raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         out = _target(name)
         if out.exists():
             log = out.with_suffix(".log")
@@ -107,7 +107,7 @@ def lib(entry: str) -> ctypes.CDLL:
     name = ENTRIES.get(entry, entry)
     if name not in _libs:
         if not _target(name).exists():
-            build_all()
+            build_all((name,))
         so = ctypes.CDLL(str(_target(name)))
         so.error_string.argtypes = (ctypes.c_int,)
         so.error_string.restype = ctypes.c_char_p

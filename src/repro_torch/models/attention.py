@@ -6,12 +6,17 @@ attention over an encoder's memory.
 
 Shapes: q [B, S, H, D]; k/v [B, S_kv, KV, D] with H % KV == 0 (GQA groups
 are expanded inside).
+
+Called with DTensors, the full-sequence and cross attention run on each
+rank's batch and head shard (`models/spmd.py`).
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+
+from repro_torch.models import spmd
 
 NEG_INF = -2.3819763e38  # ~ -bf16 max; the TPU kernels' mask value
 
@@ -46,6 +51,7 @@ def _positions(pos: Optional[torch.Tensor], b: int, s: int,
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+@spmd.wrap
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
                    q_pos: Optional[torch.Tensor] = None,
@@ -68,6 +74,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+@spmd.wrap
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         chunk: int = 512,
@@ -113,6 +120,35 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def write_cache(cache: dict, slot: int, k: torch.Tensor, v: torch.Tensor,
+                pos: int) -> None:
+    """One token's k / v [B, 1, KV, D] and its position into slot `slot`
+    of a layer's cache {"k", "v": [B, C, KV, D], "k_pos": [B, C]}, in
+    place."""
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["k_pos"][:, slot] = pos
+
+
+def decode_mask(s: int, cache_len: Union[int, torch.Tensor], *,
+                window: int = 0, k_pos: Optional[torch.Tensor] = None,
+                q_pos: Union[int, torch.Tensor, None] = None,
+                device=None, first: int = 0) -> torch.Tensor:
+    """[B or 1, s] bool: the cache slots first .. first + s - 1 that a
+    decode query attends to: below cache_len (scalar or [B]) and, with a
+    window, by absolute positions (k_pos [B, s] of those slots, else the
+    slot index; q_pos, else cache_len - 1)."""
+    idx = first + torch.arange(s, device=device)[None]        # [1, s]
+    clen = torch.as_tensor(cache_len, device=device).reshape(-1, 1)
+    valid = idx < clen
+    if window > 0:
+        qp = clen - 1 if q_pos is None else \
+            torch.as_tensor(q_pos, device=device).reshape(-1, 1)
+        kp = idx if k_pos is None else k_pos
+        valid = valid & (kp > qp - window)
+    return valid
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      cache_len: Union[int, torch.Tensor], *, window: int = 0,
@@ -128,14 +164,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     k = _expand_kv(k_cache, h // kv)
     v = _expand_kv(v_cache, h // kv)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * d ** -0.5
-    idx = torch.arange(s, device=q.device)[None]              # [1, S]
-    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
-    valid = idx < clen
-    if window > 0:
-        qp = clen - 1 if q_pos is None else \
-            torch.as_tensor(q_pos, device=q.device).reshape(-1, 1)
-        kp = idx if k_pos is None else k_pos
-        valid = valid & (kp > qp - window)
+    valid = decode_mask(s, cache_len, window=window, k_pos=k_pos,
+                        q_pos=q_pos, device=q.device)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
@@ -158,19 +188,31 @@ def decode_attention_partial(q, k_part, v_part, valid_mask):
     return out, m, l
 
 
+def rescale_partial(out, m, l, m_all):
+    """A flash-decoding partial (out, m, l) brought to the common max
+    m_all [B,H,1]: (out, l) scaled by exp(m - m_all)."""
+    scale = torch.exp(m - m_all)                  # [B,H,1]
+    return out * scale.movedim(1, -1)[..., None], l * scale
+
+
+def normalise_partials(out, l):
+    """The summed rescaled partials' out over their summed l."""
+    return out / torch.clamp(l, min=1e-30).movedim(1, -1)[..., None]
+
+
 def combine_partials(parts):
     """Merge flash-decoding partials [(out, m, l)] -> [B,1,H,D]."""
     m_all = torch.stack([m for _, m, _ in parts]).amax(dim=0)
     tot_l = 0.0
     tot_o = 0.0
     for o, m, l in parts:
-        scale = torch.exp(m - m_all)              # [B,H,1]
-        tot_l = tot_l + l * scale
-        tot_o = tot_o + o * scale.movedim(1, -1)[..., None]
-    tot_l = torch.clamp(tot_l, min=1e-30)
-    return tot_o / tot_l.movedim(1, -1)[..., None]
+        o, l = rescale_partial(o, m, l, m_all)
+        tot_l = tot_l + l
+        tot_o = tot_o + o
+    return normalise_partials(tot_o, tot_l)
 
 
+@spmd.wrap
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: [B, Sq, H, D] over encoder memory k/v: [B, Se, KV, D], no

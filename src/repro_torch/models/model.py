@@ -56,10 +56,12 @@ class Model:
         self.remat = remat
         self.device = resolve_device(device)
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, place=None) -> dict:
         """Random weights from `generator` (which must live on
-        self.device), at the JAX package's shapes and scales."""
-        return T.init_lm(self.cfg, generator, self.device)
+        self.device), at the JAX package's shapes and scales. `place(path,
+        leaf)` replaces each leaf as its layer is drawn (`transformer.
+        init_lm`; e.g. `launch.shardings.param_placer`)."""
+        return T.init_lm(self.cfg, generator, self.device, place=place)
 
     def param_specs(self) -> dict:
         """The parameter tree as "meta" tensors: every leaf's shape and

@@ -27,9 +27,15 @@ integer parts:
     on the card agree bit for bit in bf16.
 
 Every shape is static and nothing reads a device value on the host, so the
-block runs inside the serve window's CUDA graph. The JAX package's
-sharding hints (`set_sharding_hints`, `_hint`) have no counterpart: the
-port runs on one device and has no sharding.
+block runs inside the serve window's CUDA graph.
+
+Sharding hints (`set_sharding_hints`, `_hint`, the JAX package's
+`with_sharding_constraint` hints of the dry run's "moe_hints" variant):
+on DTensors (`launch/shardings.py`) a hint redistributes the dispatched
+tokens [E, G, D] ("dispatch") and the experts' hidden [E, G, F]
+("hidden") to the hinted specs on the tensor's own mesh, so that the
+weights are gathered rather than partial sums of activations reduced. On
+plain tensors a hint is the identity.
 """
 from __future__ import annotations
 
@@ -37,6 +43,28 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import spmd
+
+
+_SHARDING_HINTS = None
+
+
+def set_sharding_hints(hints) -> None:
+    """hints: {"dispatch": spec for [E, G, D]-like tensors, "hidden": spec
+    for [E, G, F]} (`launch.shardings.P`), or None to disable."""
+    global _SHARDING_HINTS
+    _SHARDING_HINTS = hints
+
+
+def _hint(x: torch.Tensor, name: str) -> torch.Tensor:
+    if not (_SHARDING_HINTS and name in _SHARDING_HINTS):
+        return x
+    if not spmd.is_dtensor(x):
+        return x
+    from repro_torch.launch.shardings import placements
+    return x.redistribute(x.device_mesh, placements(
+        x.device_mesh, _SHARDING_HINTS[name]))
 
 
 def init_moe(cfg, dtype, generator, device) -> dict:
@@ -82,10 +110,11 @@ def _counts(flat_e: torch.Tensor, e: int) -> torch.Tensor:
 
 def _experts(buf: torch.Tensor, p: dict) -> torch.Tensor:
     """SwiGLU of each expert over its rows: [E, G, D] -> [E, G, D]."""
-    h = torch.bmm(buf, p["wi"])
-    gate = torch.bmm(buf, p["wg"])
+    buf = _hint(buf, "dispatch")
+    h = _hint(torch.bmm(buf, p["wi"]), "hidden")
+    gate = _hint(torch.bmm(buf, p["wg"]), "hidden")
     h = F.silu(gate.float()).to(h.dtype) * h
-    return torch.bmm(h, p["wo"])
+    return _hint(torch.bmm(h, p["wo"]), "dispatch")
 
 
 def moe_block(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25,
@@ -95,10 +124,30 @@ def moe_block(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25,
     [E] int32). With `with_aux` False the aux loss is not computed (None):
     decode discards it."""
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
+    g = capacity(t, cfg, capacity_factor)
     xf = x.reshape(t, d)
-    gates, topk_w, topk_e = _route(p, xf, k)
+    if spmd.is_dtensor(x):
+        # the dispatch ranks every slot among all slots of its expert:
+        # it runs whole on every rank (the token shards all-gathered)
+        buf, aux_loss, counts, src, w, idx = spmd.replicated(
+            _dispatch, p["router"], xf, cfg, g, with_aux)
+        out = spmd.replicated(_combine, _experts(buf, p), src, w, idx)
+        return spmd.constrain(out.reshape(b, s, d)), aux_loss, counts
+    buf, aux_loss, counts, src, w, idx = _dispatch(p["router"], xf, cfg, g,
+                                                   with_aux)
+    return _combine(_experts(buf, p), src, w, idx).reshape(b, s, d), \
+        aux_loss, counts
+
+
+def _dispatch(router: torch.Tensor, xf: torch.Tensor, cfg, g: int,
+              with_aux: bool):
+    """Route the tokens xf [T, D] and gather them into the experts' rows:
+    (buf [E, G, D], aux loss or None, counts [E] int32, and the combine's
+    src [T*k], w [T*k] (0 for a dropped slot) and idx [T, k])."""
+    t, d = xf.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    gates, topk_w, topk_e = _route({"router": router}, xf, k)
 
     n = t * k
     flat_e = topk_e.reshape(n)
@@ -111,33 +160,40 @@ def moe_block(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25,
     # choice of expert se[i], with weight sw[i]
     order = torch.argsort(flat_e, stable=True)
     se, sw, st = flat_e[order], topk_w.reshape(n)[order], order // k
-    slots = torch.arange(n, device=x.device)
+    slots = torch.arange(n, device=xf.device)
     starts = torch.cumsum(counts, 0) - counts
     rank = slots - starts[se]
-    g = capacity(t, cfg, capacity_factor)
     keep = rank < g
     dest = torch.where(keep, se * g + rank, n)          # n: the drop bin
     # the row each sorted slot writes; the last write in sorted order wins
     winner = torch.full((e * g + 1,), -1, dtype=torch.int64,
-                        device=x.device).scatter_reduce_(
+                        device=xf.device).scatter_reduce_(
         0, dest, slots, "amax", include_self=True)
     src_tok = st[winner.clamp(min=0)]
     buf = torch.where((winner >= 0)[:, None], xf[src_tok],
-                      torch.zeros((), dtype=x.dtype, device=x.device))
-    y = _experts(buf[:-1].reshape(e, g, d), p).reshape(e * g, d)
+                      torch.zeros((), dtype=xf.dtype, device=xf.device))
 
-    # gather back; each token adds its k contributions in ascending expert
-    # id, which is ascending sorted position: idx [T, k] holds each token's
-    # sorted positions in that order
+    # each token adds its k contributions in ascending expert id, which is
+    # ascending sorted position: idx [T, k] holds each token's sorted
+    # positions in that order
     src = torch.where(keep, se * g + rank, 0)
-    w = torch.where(keep, sw, 0.0).to(y.dtype)
+    w = torch.where(keep, sw, 0.0)
     idx = torch.empty_like(order).scatter_(0, order, slots)
     idx = torch.sort(idx.view(t, k), dim=-1).values
-    parts = y[src[idx]] * w[idx][..., None]              # [T, k, D]
-    out = torch.zeros((t, d), dtype=y.dtype, device=x.device)
+    return buf[:-1].reshape(e, g, d), aux_loss, counts, src, w, idx
+
+
+def _combine(y: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
+             idx: torch.Tensor) -> torch.Tensor:
+    """Gather the experts' rows y [E, G, D] back to the tokens [T, D]: the
+    k weighted contributions of each token added one at a time."""
+    t, k = idx.shape
+    y = y.reshape(-1, y.shape[-1])
+    parts = y[src[idx]] * w.to(y.dtype)[idx][..., None]  # [T, k, D]
+    out = torch.zeros((t, y.shape[1]), dtype=y.dtype, device=y.device)
     for j in range(k):
         out = out + parts[:, j]
-    return out.reshape(b, s, d), aux_loss, counts
+    return out
 
 
 def moe_block_gathered(p: dict, x: torch.Tensor, cfg

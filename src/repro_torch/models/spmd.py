@@ -1,0 +1,346 @@
+"""The model's attention on DTensors (the port's counterpart of what XLA's
+SPMD partitioner does with the JAX package's attention).
+
+Attention is parallel over batch and heads, and a layout that shards a
+tensor over both (the batch over "data", the heads over "model") merges
+them into one batch dim of the score product, which DTensor's sharding
+propagation cannot express (`aten.bmm` on a dim sharded twice). So a
+DTensor call of an attention function runs the plain function on each
+rank's shard through `torch.distributed.tensor.experimental.local_map`:
+
+  * q, k, v [B, S, H|KV, D] are first redistributed to the batch over the
+    data axes ("pod", "data") and the heads over "model", where they
+    divide (otherwise replicated on that axis); a redistribution shows in
+    the collective counts like any other;
+  * with the q heads over "model" and KV heads that do not divide it
+    (GQA / MQA), k and v stay whole on "model" and each rank picks the kv
+    head of each of its q heads (h // (H / KV));
+  * positions and masks that the forward built as plain tensors are the
+    same on every rank: they enter as replicated and are cut to the batch
+    shard locally.
+
+Decode attention over a cache whose length is sharded on "model" (the
+sharding rules' layout for decode: batch over "data", cache length over
+"model") is flash decoding: each rank writes the new token where its
+shard holds the slot, takes the softmax partials (max, sum, weighted sum)
+over its part of the cache, and the partials are combined by all-reduces
+over "model" (max, then sums), what the JAX package's SPMD program lowers
+to (a psum over the sharded length).
+
+Likewise the mamba1 scan (`scan`) and mamba2's SSD core (`batch_heads`)
+run on local batch / channel / head shards; the MoE dispatch, which ranks
+every slot among all slots of its expert, runs whole on every rank over
+gathered tokens (`replicated`). `constrain` (the residual stream and its
+gradient in the batch layout), `pin_grad` (a gradient back in its
+tensor's layout) and `split_heads` (GQA kv heads gathered on "model")
+keep DTensor's propagation away from dims sharded twice, which it has no
+rule for. On plain tensors every function here is the plain call.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.launch.mesh import axis_sizes, data_axes
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor import DTensor
+else:                                   # a torch without distributed
+    DTensor = ()
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def _data_size(mesh) -> int:
+    n = 1
+    for name in data_axes(mesh):
+        n *= axis_sizes(mesh)[name]
+    return n
+
+
+def _layout(mesh, batch: Optional[int], heads: Optional[int] = None,
+            head_dim: int = 2, batch_dim: int = 0) -> tuple:
+    """Placements: dim `batch_dim` over the data axes if `batch` (None: no
+    batch dim) divides them, dim `head_dim` over "model" if `heads`
+    divides it; Replicate elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    data_ok = batch is not None and batch % _data_size(mesh) == 0
+    msz = axis_sizes(mesh).get("model", 1)
+    out = []
+    for name in mesh.mesh_dim_names:
+        if name in data_axes(mesh) and data_ok:
+            out.append(Shard(batch_dim))
+        elif name == "model" and heads is not None and heads % msz == 0:
+            out.append(Shard(head_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _as_dtensor(x, mesh):
+    """A plain tensor built alike on every rank, as a replicated DTensor."""
+    from torch.distributed.tensor import Replicate
+    if x is None or is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _local_kv_heads(mesh, k, heads_local: int, n_rep: int):
+    """k [B, S, KV, D], whole on "model": the kv head of each of this
+    rank's q heads [B, S, heads_local, D]."""
+    first = mesh.get_local_rank("model") * heads_local
+    idx = torch.div(torch.arange(first, first + heads_local,
+                                 device=k.device), n_rep,
+                    rounding_mode="floor")
+    return k.index_select(2, idx)
+
+
+def attention(fn: Callable, q, k, v, *args, **kw):
+    """fn(q, k, v, *args, **kw) on each rank's batch and head shard of the
+    DTensors q [B, Sq, H, D], k / v [B, Sk, KV, D]; tensor arguments in
+    args / kw (positions, masks: [B, ...]) are cut to the batch shard, the
+    others pass as they are. The result is a DTensor laid out as q."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    b, _, h, _ = q.shape
+    kv = k.shape[2]
+    msz = axis_sizes(mesh).get("model", 1)
+    q_place = _layout(mesh, b, h)
+    heads_split = h % msz == 0
+    kv_split = heads_split and kv % msz == 0
+    kv_place = _layout(mesh, b, kv if kv_split else None)
+    pick = heads_split and not kv_split and msz > 1
+    given = list(enumerate(args)) + list(kw.items())
+    keys = [key for key, x in given if isinstance(x, torch.Tensor)]
+    tensors = [_as_dtensor(dict(given)[key], mesh) for key in keys]
+
+    def local(q_, k_, v_, *ts):
+        if pick:
+            k_ = _local_kv_heads(mesh, k_, q_.shape[2], h // kv)
+            v_ = _local_kv_heads(mesh, v_, q_.shape[2], h // kv)
+        got = dict(zip(keys, ts))
+        return fn(q_, k_, v_, *[got.get(i, x) for i, x in enumerate(args)],
+                  **{n: got.get(n, x) for n, x in kw.items()})
+
+    places = (q_place, kv_place, kv_place) + tuple(
+        _layout(mesh, b) for _ in tensors)
+    return local_map(local, out_placements=list(q_place), in_placements=places,
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, _as_dtensor(k, mesh), _as_dtensor(v, mesh), *tensors)
+
+
+def decode_attention(q, cache: dict, new_k, new_v, pos: int,
+                     cache_len: int, window: int):
+    """One decode step of attention over a layer's dense cache of
+    DTensors {"k", "v": [B, C, KV, D], "k_pos": [B, C]}: writes new_k /
+    new_v [B, 1, KV, D] and `pos` at slot pos % C IN PLACE
+    (`attention.write_cache` on the rank whose shard holds the slot),
+    then attends q [B, 1, H, D] over the first `cache_len` slots (with the
+    sliding window by absolute positions). The cache keeps its layout
+    (batch over the data axes, length over "model" where it divides);
+    q and the new entries are replicated on "model" to meet it. Over a
+    sharded length each rank takes `attention.decode_attention_partial`
+    over its slots, and the partials are combined by all-reduces."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.models import attention as attn_lib
+    mesh = q.device_mesh
+    c = cache["k"].shape[1]
+    cache_place = tuple(cache["k"].placements)
+    pos_place = tuple(cache["k_pos"].placements)
+    split = tuple(i for i, p in enumerate(cache_place)
+                  if isinstance(p, Shard) and p.dim == 1)
+    if any(isinstance(p, Shard) and p.dim not in (0, 1)
+           for p in cache_place):
+        raise ValueError(f"cache placements {cache_place}")
+    row_place = tuple(p if isinstance(p, Shard) and p.dim == 0
+                      else Replicate() for p in cache_place)
+    slot = pos % c
+    group = [mesh.get_group(i) for i in split]
+
+    def local(q_, kc, vc, kp, nk, nv):
+        c_local = kc.shape[1]
+        first = 0
+        for i in split:
+            first = first * mesh.shape[i] + mesh.get_local_rank(i)
+        first *= c_local
+        local_cache = {"k": kc, "v": vc, "k_pos": kp}
+        if first <= slot < first + c_local:
+            attn_lib.write_cache(local_cache, slot - first, nk, nv, pos)
+        if not split:
+            return attn_lib.decode_attention(q_, kc, vc, cache_len,
+                                             window=window, k_pos=kp,
+                                             q_pos=pos)
+        valid = attn_lib.decode_mask(c_local, cache_len, window=window,
+                                     k_pos=kp, q_pos=pos,
+                                     device=q_.device, first=first)
+        out, m, den = attn_lib.decode_attention_partial(q_, kc, vc, valid)
+        m_all = m
+        for g in group:
+            m_all = _all_reduce(m_all, "max", g)
+        out, den = attn_lib.rescale_partial(out, m, den, m_all)
+        for g in group:
+            den = _all_reduce(den, "sum", g)
+            out = _all_reduce(out, "sum", g)
+        return attn_lib.normalise_partials(out, den).to(q_.dtype)
+
+    f = local_map(local, out_placements=list(row_place),
+                  in_placements=(row_place, cache_place, cache_place,
+                                 pos_place, row_place, row_place),
+                  device_mesh=mesh, redistribute_inputs=True)
+    return f(q, cache["k"], cache["v"], cache["k_pos"],
+             _as_dtensor(new_k, mesh), _as_dtensor(new_v, mesh))
+
+
+def _all_reduce(x, op: str, group):
+    """A functional all-reduce over `group` (it shows in the collective
+    counts as `_c10d_functional.all_reduce`)."""
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.all_reduce(x, op, group)
+
+
+def wrap(fn: Callable) -> Callable:
+    """fn, an attention function taking q, k, v first (those of
+    `models/attention.py`, the flash_attention kernel's wrapper), routed
+    through `attention` when its q is a DTensor."""
+    @functools.wraps(fn)
+    def run(q, k, v, *args, **kw):
+        if is_dtensor(q):
+            return attention(fn, q, k, v, *args, **kw)
+        return fn(q, k, v, *args, **kw)
+    return run
+
+
+class _Constrain(torch.autograd.Function):
+    """x redistributed to `place`, and its gradient too (a redistribution's
+    own backward returns the gradient in the input's layout)."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        ctx.place = place
+        return x.redistribute(x.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.place), None
+
+
+def constrain(x):
+    """The residual stream [B, S, D] and its gradient in the batch layout:
+    batch over the data axes, whole on "model" (a redistribution, the
+    counterpart of JAX's `with_sharding_constraint`); a plain tensor as
+    it is. Without it DTensor's propagation may leave the stream, or its
+    gradient, sharded over the sequence on "model", which the next
+    flattening product cannot take (a dim sharded twice)."""
+    if not is_dtensor(x):
+        return x
+    return _Constrain.apply(x, _layout(x.device_mesh, x.shape[0]))
+
+
+def pin_grad(x):
+    """x as it is, its gradient redistributed to x's own layout (a
+    DTensor's; a plain tensor passes). Where DTensor would resolve a
+    partial gradient by scattering it over the sequence (the mamba2
+    block's gated norm, on the multi-pod mesh), the layout the forward
+    had comes back, and the weight gradient's product stays
+    expressible."""
+    if not is_dtensor(x):
+        return x
+    return _Constrain.apply(x, tuple(x.placements))
+
+
+def split_heads(t, heads: int):
+    """t [..., heads * Dh] -> [..., heads, Dh]. A DTensor whose last dim
+    is sharded on "model" in more shards than it has heads (the kv
+    projection of GQA / MQA: 2 kv heads over a model axis of 16) is first
+    gathered on "model": DTensor cannot lay one head over several ranks."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        place = list(t.placements)
+        for i, p in enumerate(place):
+            if isinstance(p, Shard) and p.dim == t.dim() - 1 and \
+                    heads % mesh.shape[i]:
+                place[i] = Replicate()
+        if place != list(t.placements):
+            t = t.redistribute(mesh, place)
+    return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+
+
+def batch_heads(fn: Callable, heads: int, *args, out):
+    """fn(*tensors), each arg a (tensor, batch dim or None, head dim or
+    None) and `out` each output's (batch dim, head dim): on DTensors every
+    rank runs fn on its shard of the batch (over the data axes, where it
+    divides) and of the `heads` heads (over "model", where they divide
+    it), every other dim whole (a tensor without a head dim, e.g. one the
+    heads share, whole on "model"). For work that is independent across
+    sequences and heads (the SSD block of mamba2). Plain tensors go to fn
+    as they are."""
+    tensors = [t for t, _, _ in args]
+    if not any(is_dtensor(t) for t in tensors):
+        return fn(*tensors)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(t.device_mesh for t in tensors if is_dtensor(t))
+    b = next(t.shape[bd] for t, bd, _ in args if bd is not None)
+    msz = axis_sizes(mesh).get("model", 1)
+    split = heads % msz == 0
+
+    def place(bd, hd):
+        return _layout(mesh, None if bd is None else b,
+                       heads if split and hd is not None else None,
+                       head_dim=0 if hd is None else hd,
+                       batch_dim=0 if bd is None else bd)
+    return local_map(
+        fn, out_placements=tuple(list(place(bd, hd)) for bd, hd in out),
+        in_placements=tuple(place(bd, hd) for _, bd, hd in args),
+        device_mesh=mesh, redistribute_inputs=True)(
+        *[_as_dtensor(t, mesh) for t in tensors])
+
+
+def scan(fn: Callable, a, b, h0):
+    """fn(a, b, h0), the mamba_scan recurrence (a, b [B, S, C, N], h0
+    [B, C, N]; sequential over S, parallel over the other dims), on each
+    rank's shard when a is a DTensor: a and b keep their shards of B, C
+    and N, and are gathered over S (and summed, if partial); h0 follows
+    them. Plain tensors go to fn as they are."""
+    if not is_dtensor(a):
+        return fn(a, b, h0)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    lane = {0: 0, 2: 1, 3: 2}          # a's dim -> h0's dim
+    a_place = tuple(p if isinstance(p, Shard) and p.dim in lane
+                    else Replicate() for p in a.placements)
+    h_place = tuple(Shard(lane[p.dim]) if isinstance(p, Shard) else p
+                    for p in a_place)
+    return local_map(fn, out_placements=(list(a_place), list(h_place)),
+                     in_placements=(a_place, a_place, h_place),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        a, _as_dtensor(b, mesh), _as_dtensor(h0, mesh))
+
+
+def replicated(fn: Callable, *args):
+    """fn(*args) whole on every rank: each DTensor argument gathered
+    (`redistribute` to Replicate, which the collective counts show), fn run
+    on the whole local tensors, and each tensor it returns (a tuple of
+    them, or one) wrapped as a replicated DTensor. For a step that needs
+    every shard at once (the MoE dispatch's global ranking of slots)."""
+    from torch.distributed.tensor import Replicate
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    rep = [Replicate()] * mesh.ndim
+    local = [a.redistribute(mesh, rep).to_local() if is_dtensor(a) else a
+             for a in args]
+    out = fn(*local)
+
+    def wrap(x):
+        if isinstance(x, torch.Tensor):
+            return DTensor.from_local(x, mesh, rep, run_check=False)
+        return x
+    if isinstance(out, tuple):
+        return tuple(wrap(x) for x in out)
+    return wrap(out)

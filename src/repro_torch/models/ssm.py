@@ -20,6 +20,7 @@ Din]}; mamba2 {"h": [B, N, nh, 64] fp32, "conv": [B, K-1, Din + 2N]}.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import spmd
 
 MAMBA2_HEADDIM = 64
 
@@ -151,7 +153,7 @@ def mamba1_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256,
 
     h0 = (torch.zeros((bsz, xr.shape[-1], n), dtype=torch.float32,
                       device=x.device) if state is None else state["h"])
-    h_all, h_last = kops.mamba_scan(da, db, h0)
+    h_all, h_last = spmd.scan(kops.mamba_scan, da, db, h0)
     del da, db  # 8 GiB at falcon-mamba's prefill shape
     y = torch.einsum("bscn,bsn->bsc", h_all, cmat.float())  # [B, S, Din]
     y = y + xr32 * p["D"]
@@ -199,9 +201,10 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128,
     c = min(chunk, s)
     if s % c:
         raise ValueError(f"seq {s} % chunk {c} != 0")
-    nc = s // c
 
-    zxbcdt = x @ p["in_proj"]
+    # on DTensors the projection's gradient keeps its layout (its width
+    # over "model"), so the weight's gradient is a sharded product
+    zxbcdt = spmd.pin_grad(x @ p["in_proj"])
     z, xbc, dt = zxbcdt.split([din, din + 2 * n, nh], dim=-1)
     conv_state = None if state is None else state["conv"]
     xbc, new_conv = causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
@@ -211,6 +214,38 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128,
     dt = _softplus(dt.float() + p["dt_bias"])             # [B, S, H]
     a = -torch.exp(p["A_log"])                            # [H]
     xh = xr.reshape(bsz, s, nh, ph)
+    h0 = (torch.zeros((bsz, n, nh * ph), dtype=torch.float32,
+                      device=x.device) if state is None
+          else state["h"].reshape(bsz, n, nh * ph))
+    # every head and every sequence on its own: on DTensors, each rank's
+    # batch and head shard (bmat / cmat are shared by the heads)
+    y, h_last = spmd.batch_heads(
+        functools.partial(_ssd, chunk=c), nh,
+        (xh, 0, 2), (dt, 0, 2), (bmat, 0, None), (cmat, 0, None),
+        (a, None, 0), (p["D"], None, 0), (h0, 0, 2),
+        out=((0, 2), (0, 2)))
+    # the gated norm's inputs and output keep their layouts in the
+    # backward too (`spmd.pin_grad`; plain tensors pass)
+    y = spmd.pin_grad(y.reshape(bsz, s, din))
+    # gated RMSNorm (mamba2's norm before out_proj)
+    y = y * F.silu(spmd.pin_grad(z).float())
+    y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-5) \
+        * (1.0 + p["norm"])
+    out = spmd.pin_grad(y.to(x.dtype)) @ p["out_proj"]
+    return out, {"h": h_last.reshape(bsz, n, nh, ph), "conv": new_conv}
+
+
+def _ssd(xh: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+         cmat: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+         h0: torch.Tensor, *, chunk: int
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD core of `mamba2_forward` on xh [B, S, H, P], dt [B, S, H]
+    fp32, B and C [B, S, N], a and D [H], h0 [B, N, H * P] fp32: (y [B, S,
+    H, P] fp32 with the D skip, h_last [B, N, H * P] fp32)."""
+    bsz, s, nh, ph = xh.shape
+    n = bmat.shape[-1]
+    c = chunk
+    nc = s // c
     dtc = dt.reshape(bsz, nc, c, nh)
     xc = xh.reshape(bsz, nc, c, nh, ph).float()
     bc = bmat.float().reshape(bsz, nc, c, n)
@@ -225,7 +260,7 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128,
     # JAX package: the same values, but a gradient that stays finite
     # where JAX's is inf * 0 = nan
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
-                                   device=x.device))
+                                   device=xh.device))
     seg = torch.exp(torch.where(causal[None, None, :, :, None],
                                 cum[:, :, :, None, :] - cum[:, :, None, :, :],
                                 -math.inf))
@@ -243,9 +278,6 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128,
     del dtx, decay_to_end
     # the carry across chunks, one lane per (n, h, p)
     chunk_decay = torch.exp(da.sum(dim=2))                # [B, NC, H]
-    h0 = (torch.zeros((bsz, n, nh * ph), dtype=torch.float32,
-                      device=x.device) if state is None
-          else state["h"].reshape(bsz, n, nh * ph))
     a_c = chunk_decay[:, :, None, :, None].expand(bsz, nc, n, nh, ph) \
         .reshape(bsz, nc, n, nh * ph).contiguous()
     h_all, h_last = kops.mamba_scan(
@@ -258,14 +290,8 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128,
     y_inter = torch.einsum("bzln,bznhp->bzlhp", cc, h_prevs)
     y = y_intra + y_inter * torch.exp(cum)[..., None]
     del y_intra, y_inter, h_prevs
-    y = y.reshape(bsz, s, nh, ph) + xh.float() * p["D"][:, None]
-    y = y.reshape(bsz, s, din)
-    # gated RMSNorm (mamba2's norm before out_proj)
-    y = y * F.silu(z.float())
-    y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-5) \
-        * (1.0 + p["norm"])
-    out = y.to(x.dtype) @ p["out_proj"]
-    return out, {"h": h_last.reshape(bsz, n, nh, ph), "conv": new_conv}
+    y = y.reshape(bsz, s, nh, ph) + xh.float() * d_skip[:, None]
+    return y, h_last
 
 
 def mamba2_step(p: dict, x: torch.Tensor, cfg,

@@ -25,6 +25,13 @@ occurrence. The JAX
 package stacks the layer dicts on leading axes ([L], or [G, per]); the
 port keeps lists, since its layers run as a Python loop (`convert.py`
 unstacks).
+
+The same code runs sharded on DTensor params, inputs and states laid
+out by `launch/shardings.py` (under `implicit_replication()`): DTensor
+propagates the layouts, and `models/spmd.py` takes over where it cannot
+(attention and the scan on local shards, decode over a length-sharded
+cache, the MoE dispatch) and pins the residual stream's layout
+(`spmd.constrain`). On plain tensors the `spmd` calls do nothing.
 """
 from __future__ import annotations
 
@@ -34,11 +41,13 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch.utils import checkpoint as ckpt_lib
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import MAMBA1, MAMBA2, SHARED_ATTN
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import spmd
 from repro_torch.models import ssm as ssm_lib
 
 ATTN_IMPLS = ("full", "blockwise", "flash")
@@ -137,21 +146,35 @@ def _hybrid_shape(cfg) -> Tuple[int, int]:
     return every - 1, cfg.num_layers // every
 
 
-def init_lm(cfg, generator: torch.Generator, device) -> dict:
+def init_lm(cfg, generator: torch.Generator, device,
+            place: Optional[Callable] = None) -> dict:
     """Random weights at the JAX package's shapes and scales (the values
     differ: torch's generator is not JAX's). On the "meta" device nothing
-    is allocated: the tree's shapes and dtypes only."""
+    is allocated: the tree's shapes and dtypes only. `place(path, leaf)`,
+    when given, replaces every leaf as soon as its layer (or top-level
+    leaf) is drawn, e.g. by its shard (`launch.shardings.param_placer`):
+    the whole tree then never exists on one device. The draws are the
+    same either way."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
+
+    def put(prefix: str, sub):
+        if place is None:
+            return sub
+        names, leaves = tree_lib.flatten_with_paths(sub)
+        return tree_lib.unflatten(sub, [
+            place(f"{prefix}/{n}" if n else prefix, x)
+            for n, x in zip(names, leaves)])
     params = {
-        "embed": _normal((cfg.vocab_size, cfg.d_model), 0.02, dtype,
-                         generator, device),
-        "final_ln": torch.zeros(cfg.d_model, dtype=torch.float32,
-                                device=device),
+        "embed": put("embed", _normal((cfg.vocab_size, cfg.d_model), 0.02,
+                                      dtype, generator, device)),
+        "final_ln": put("final_ln", torch.zeros(
+            cfg.d_model, dtype=torch.float32, device=device)),
     }
     if not cfg.tie_embeddings:
-        params["out"] = _normal((cfg.vocab_size, cfg.d_model), 0.02, dtype,
-                                generator, device).T.contiguous()
+        params["out"] = put("out", _normal(
+            (cfg.vocab_size, cfg.d_model), 0.02, dtype, generator,
+            device).T.contiguous())
 
     def ssm_block(init):
         return {"ln": torch.zeros(cfg.d_model, dtype=torch.float32,
@@ -159,34 +182,34 @@ def init_lm(cfg, generator: torch.Generator, device) -> dict:
                 "m": init(cfg, dtype, generator, device)}
     if cfg.family == "hybrid":
         per, groups = _hybrid_shape(cfg)
-        params["mamba"] = [[ssm_block(ssm_lib.init_mamba2)
-                            for _ in range(per)] for _ in range(groups)]
-        params["shared_attn"] = init_attn_layer(cfg, dtype, generator,
-                                                device)
+        params["mamba"] = [[put(f"mamba/{g}/{i}",
+                                ssm_block(ssm_lib.init_mamba2))
+                            for i in range(per)] for g in range(groups)]
+        params["shared_attn"] = put("shared_attn", init_attn_layer(
+            cfg, dtype, generator, device))
         return params
     if cfg.family == "ssm":
-        layers: List[dict] = [ssm_block(ssm_lib.init_mamba1)
-                              for _ in range(cfg.num_layers)]
+        layers: List[dict] = [put(f"layers/{i}",
+                                  ssm_block(ssm_lib.init_mamba1))
+                              for i in range(cfg.num_layers)]
     else:
-        layers = [init_attn_layer(cfg, dtype, generator, device,
-                                  cross=cfg.is_encoder_decoder)
-                  for _ in range(cfg.num_layers)]
+        layers = [put(f"layers/{i}", init_attn_layer(
+            cfg, dtype, generator, device, cross=cfg.is_encoder_decoder))
+                  for i in range(cfg.num_layers)]
     params["layers"] = layers
     if cfg.is_encoder_decoder:
-        params["enc_layers"] = [init_attn_layer(cfg, dtype, generator,
-                                                device)
-                                for _ in range(cfg.num_encoder_layers)]
-        params["enc_ln"] = torch.zeros(cfg.d_model, dtype=torch.float32,
-                                       device=device)
+        params["enc_layers"] = [put(f"enc_layers/{i}", init_attn_layer(
+            cfg, dtype, generator, device))
+                                for i in range(cfg.num_encoder_layers)]
+        params["enc_ln"] = put("enc_ln", torch.zeros(
+            cfg.d_model, dtype=torch.float32, device=device))
     return params
 
 
 def _qkv(p, x, cfg, positions):
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    q = spmd.split_heads(x @ p["wq"], cfg.num_heads)
+    k = spmd.split_heads(x @ p["wk"], cfg.num_kv_heads)
+    v = spmd.split_heads(x @ p["wv"], cfg.num_kv_heads)
     return L.positional(cfg, q, positions), L.positional(cfg, k, positions), v
 
 
@@ -210,7 +233,7 @@ def _cross(p: dict, x: torch.Tensor, cfg, enc_kv, enc_mask=None):
     (k, v), each [B, Se, KV, Dh] (`_enc_kv`)."""
     b, s, _ = x.shape
     hx = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
-    qx = (hx @ p["xq"]).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    qx = spmd.split_heads(hx @ p["xq"], cfg.num_heads)
     ox = attn_lib.cross_attention(qx, enc_kv[0], enc_kv[1], enc_mask)
     return x + ox.reshape(b, s, -1) @ p["xo"]
 
@@ -228,12 +251,20 @@ def decode_layer_step(p: dict, x: torch.Tensor, cfg, positions, attend_fn,
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg, positions)
     o, aux = attend_fn(q, k, v)
-    x = x + o.reshape(b, 1, -1) @ p["wo"]
+    x = spmd.constrain(x + o.reshape(b, 1, -1) @ p["wo"])
     if enc_kv is not None:
-        x = _cross(p, x, cfg, enc_kv)
+        x = spmd.constrain(_cross(p, x, cfg, enc_kv))
     f, _, counts = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
                         decode=True)
-    return x + f, aux, counts
+    return spmd.constrain(x + f), aux, counts
+
+
+@spmd.wrap
+def _flash(q, k, v, **kw):
+    """The flash_attention kernel's wrapper, on local shards for DTensors
+    (looked up at each call, so that a patched `kops.flash_attention`
+    takes effect)."""
+    return kops.flash_attention(q, k, v, **kw)
 
 
 def attn_ffn_block(p: dict, x: torch.Tensor, cfg, positions, *,
@@ -259,15 +290,14 @@ def attn_ffn_block(p: dict, x: torch.Tensor, cfg, positions, *,
         o = attn_lib.blockwise_attention(q, k, v, chunk=min(512, s),
                                          **kwargs)
     elif attn_impl == "flash":
-        o = kops.flash_attention(q, k, v, causal=causal,
-                                 window=cfg.sliding_window)
+        o = _flash(q, k, v, causal=causal, window=cfg.sliding_window)
     else:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-    x = x + o.reshape(b, s, -1) @ p["wo"]
+    x = spmd.constrain(x + o.reshape(b, s, -1) @ p["wo"])
     if enc_kv is not None:
-        x = _cross(p, x, cfg, enc_kv, enc_mask)
+        x = spmd.constrain(_cross(p, x, cfg, enc_kv, enc_mask))
     f, aux, counts = _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x + f, aux, (k, v), counts
+    return spmd.constrain(x + f), aux, (k, v), counts
 
 
 def _pos2d(positions):
@@ -287,9 +317,11 @@ def _check_forward(cfg, remat: str, enc_embeds) -> None:
 
 
 def _head(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The logits; on DTensors their gradient keeps the logits' layout
+    (the vocab over "model"), which the softmax would otherwise gather."""
     x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
     out_t = params["embed"].T if cfg.tie_embeddings else params["out"]
-    return L.logits_head(out_t, x)
+    return spmd.pin_grad(L.logits_head(out_t, x))
 
 
 def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
@@ -319,11 +351,12 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     x = L.embed(params["embed"], tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    x = spmd.constrain(x)
     if cfg.family == "ssm":
         def ssm_body(h, lp):
             y, _ = ssm_lib.mamba1_forward(
                 lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
-            return h + y
+            return spmd.constrain(h + y)
         ssm_body = _maybe_remat(ssm_body, remat)
         for lp in params["layers"]:
             x = ssm_body(x, lp)
@@ -380,10 +413,8 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
 def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg):
     """Project the encoder's output [B, Se, D] to this decoder layer's
     cross-attention (k, v), each [B, Se, KV, Dh]."""
-    b, se, _ = enc_out.shape
-    shape = (b, se, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return (enc_out @ lp["xk"]).reshape(shape), \
-        (enc_out @ lp["xv"]).reshape(shape)
+    return spmd.split_heads(enc_out @ lp["xk"], cfg.num_kv_heads), \
+        spmd.split_heads(enc_out @ lp["xv"], cfg.num_kv_heads)
 
 
 def encoder_forward(params: dict, cfg, enc_embeds: torch.Tensor, *,
@@ -414,7 +445,7 @@ def _hybrid_forward(params: dict, cfg, x: torch.Tensor, positions,
         for lp in group:
             y, _ = ssm_lib.mamba2_forward(
                 lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
-            h = h + y
+            h = spmd.constrain(h + y)
         return attn_ffn_block(params["shared_attn"], h, cfg, positions,
                               attn_impl=attn_impl)[0]
     group_body = _maybe_remat(group_body, remat)
@@ -498,10 +529,11 @@ def attn_block_decode(p: dict, x: torch.Tensor, cfg, cache: dict, pos: int,
     c = cache["k"].shape[1]
 
     def attend(q, k, v):
-        slot = pos % c
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["k_pos"][:, slot] = pos
+        if spmd.is_dtensor(q):
+            return spmd.decode_attention(q, cache, k, v, pos,
+                                         min(pos + 1, c),
+                                         cfg.sliding_window), None
+        attn_lib.write_cache(cache, pos % c, k, v, pos)
         o = attn_lib.decode_attention(q, cache["k"], cache["v"],
                                       min(pos + 1, c),
                                       window=cfg.sliding_window,

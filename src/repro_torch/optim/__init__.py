@@ -1,1 +1,2 @@
-"""Optimizers of the port: AdamW (`adamw.py`)."""
+"""Optimizers of the port: AdamW (`adamw.py`) and the int8 gradient
+compression of the cross-pod all-reduce (`compression.py`)."""

@@ -130,3 +130,59 @@ def test_port_checkpoint_restores_through_jax(tmp_path):
             assert np.array_equal(x.view(np.int16), _bits(y))
         else:
             assert np.array_equal(x, y.numpy())
+
+
+@pytest.fixture
+def host_mesh():
+    """The port's host mesh over a world-1 gloo group (destroyed after)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_host_mesh(device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_restore_with_shardings_equals_jax(tmp_path, host_mesh):
+    """The elastic re-shard point: a checkpoint restored with a spec tree
+    (or one spec for every leaf) on the port's (1, 1) host mesh gives
+    DTensors laid out by the specs whose values equal the saved leaves
+    and JAX's `restore(shardings=)` on its host mesh, bit for bit."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as JP
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    from repro_torch.launch import shardings as sh
+    d = str(tmp_path)
+    tree = _tree()
+    tckpt.save(d, 1, tree)
+    jmesh = jmake_host_mesh()
+    jlike = jax.tree.map(np.asarray, {
+        "a": jnp.zeros((2, 3), jnp.int32), "b": {"c": jnp.zeros(
+            5, jnp.bfloat16)}, "layers": [{"w": jnp.zeros(2)}] * 3,
+        "step": jnp.zeros((), jnp.int32)})
+    port_specs = {"a": sh.P("data", None), "b": {"c": sh.P("model")},
+                  "layers": [{"w": sh.P()}] * 3, "step": sh.P()}
+    jax_sh = {"a": JP("data", None), "b": {"c": JP("model")},
+              "layers": [{"w": JP()}] * 3, "step": JP()}
+    jax_sh = jax.tree.map(lambda x: NamedSharding(jmesh, x), jax_sh,
+                          is_leaf=lambda x: isinstance(x, JP))
+    for port_sh, jsh_ in ((port_specs, jax_sh),
+                          (sh.P(), NamedSharding(jmesh, JP()))):
+        back = tckpt.restore(d, 1, tree, shardings=port_sh, mesh=host_mesh)
+        jback = jckpt.restore(d, 1, jlike, shardings=jsh_)
+        for x, y, j in zip(tree_lib.leaves(back), tree_lib.leaves(tree),
+                           jax.tree.leaves(jback)):
+            assert isinstance(x, DTensor)
+            assert _equal(x.full_tensor(), y)
+            assert np.array_equal(np.asarray(j).view(_bits(y).dtype)
+                                  if y.dtype == torch.bfloat16
+                                  else np.asarray(j), _bits(y))
+    back = tckpt.restore(d, 1, tree, shardings=port_specs, mesh=host_mesh)
+    assert back["a"].placements == (Shard(0), Replicate())
+    assert back["b"]["c"].placements == (Replicate(), Shard(0))
+    assert back["step"].placements == (Replicate(), Replicate())
+    with pytest.raises(ValueError):
+        tckpt.restore(d, 1, tree, shardings=sh.P())

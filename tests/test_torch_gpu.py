@@ -1669,3 +1669,113 @@ def test_embedding_on_card_matches_cpu(cuda, dtype):
         s = emb.write_rows(s, rows.to(dev), vals.to(dev, dtype))
         res.append([o.cpu() for o in outs + list(s.values())])
     assert all(torch.equal(a, b) for a, b in zip(*res))
+
+
+# --- the distributed layer (`launch/`, `optim/compression.py`) ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1000,), (64, 256), (3, 7, 129)])
+def test_compression_on_card_matches_cpu(cuda, shape):
+    """compress_int8 / decompress_int8 on the card: q, the scales and the
+    values equal the CPU's bit for bit (one all-zero block)."""
+    from repro_torch.optim import compression as comp
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        shape).astype(np.float32))
+    if shape == (64, 256):
+        g[5] = 0.0
+    q, s = comp.compress_int8(g)
+    qd, sd = comp.compress_int8(g.to(cuda))
+    assert torch.equal(q, qd.cpu()) and torch.equal(s, sd.cpu())
+    assert torch.equal(comp.decompress_int8(q, s, shape, torch.float32),
+                       comp.decompress_int8(qd, sd, shape,
+                                            torch.float32).cpu())
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """The (1, 1) host mesh over a world-1 NCCL group on the card (tcp on
+    localhost), destroyed after the test."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        yield make_host_mesh(device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_world1_nccl_mesh_prefill_matches_plain(nccl_mesh):
+    """A reduced qwen2-vl in fp32 on the card: the prefill of DTensor
+    params and inputs laid out by the sharding rules on the (1, 1) NCCL
+    mesh equals the plain-tensor prefill bit for bit; compressed_allreduce
+    over the mesh's data axis returns the local decompression."""
+    import dataclasses
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import compression as comp
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b", reduced=True),
+                              dtype="float32")
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=g, device=dev),
+             "extra_embeds": torch.randn(2, 8, cfg.d_model, generator=g,
+                                         device=dev) * 0.02}
+    plain = model.prefill(params, batch)
+    dp = sh.distribute(params, nccl_mesh, sh.param_shardings(
+        nccl_mesh, params), src_data_rank=None)
+    db = sh.distribute(batch, nccl_mesh, sh.batch_shardings(
+        nccl_mesh, batch), src_data_rank=None)
+    with implicit_replication():
+        out = model.prefill(dp, db)
+    assert torch.equal(out.full_tensor(), plain)
+    grads = {"w": torch.randn(3, 300, generator=g, device=dev)}
+    red, err = comp.compressed_allreduce(grads, (nccl_mesh, "data"))
+    local = comp.decompress_int8(*comp.compress_int8(grads["w"]), (3, 300),
+                                 torch.float32)
+    assert torch.equal(red["w"], local)
+    assert torch.equal(err["w"], grads["w"] - local)
+
+
+@pytest.mark.gpu
+def test_world1_nccl_mesh_flash_prefill_matches_plain(nccl_mesh):
+    """A reduced qwen2-vl in bf16 with attn_impl "flash" on the card: the
+    prefill of DTensor params and inputs on the (1, 1) NCCL mesh, where
+    the kernel runs on the local tensors, launches it once a layer on the
+    tensor cores and equals the plain-tensor prefill bit for bit."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.model import Model
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-vl-72b", reduced=True)
+    model = Model(cfg, attn_impl="flash", device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=g, device=dev),
+             "extra_embeds": torch.randn(2, 8, cfg.d_model, generator=g,
+                                         device=dev) * 0.02}
+    plain = model.prefill(params, batch)
+    dp = sh.distribute(params, nccl_mesh, sh.param_shardings(
+        nccl_mesh, params), src_data_rank=None)
+    db = sh.distribute(batch, nccl_mesh, sh.batch_shardings(
+        nccl_mesh, batch), src_data_rank=None)
+    snap = tops.count_snapshot()
+    with implicit_replication():
+        out = model.prefill(dp, db)
+    got = tops.counts_since(snap)
+    assert got["launches"]["flash_attention"] == cfg.num_layers
+    assert got["flash_variants"][tops.TENSOR_CORES] == cfg.num_layers
+    assert torch.equal(out.full_tensor(), plain)

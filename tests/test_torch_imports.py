@@ -1,5 +1,7 @@
 """The port stands alone: importing every module of `repro_torch` loads no
-JAX and nothing of the JAX package, and `chip_smoke.py` imports neither."""
+JAX and nothing of the JAX package, and `chip_smoke.py` imports neither.
+Importing starts no process group either (the dry run's fake group lives
+inside `run_cell`)."""
 import ast
 import pkgutil
 import subprocess
@@ -42,9 +44,15 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.models.embedding",
             "repro_torch.configs.shapes",
             "repro_torch.configs.seamless_m4t_large_v2",
-            "repro_torch.configs.qwen2_vl_72b"} <= set(mods)
+            "repro_torch.configs.qwen2_vl_72b",
+            "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.optim.compression",
+            "repro_torch.models.spmd"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True,
