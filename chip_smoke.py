@@ -377,6 +377,16 @@ def nvidia_smi() -> str:
     return out[0]
 
 
+def cards() -> list:
+    """Every card's index, name, power limit and draw, SM clock and
+    temperature, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit,power.draw,"
+         "clocks.sm,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()
+
+
 def cuda_time(fn, iters: int, warmup: int = 3) -> float:
     """Mean ms of fn() over `iters` launches, CUDA events, after warm-up."""
     import torch
@@ -4231,6 +4241,15 @@ DIST_DECODE = 4         # decode steps of --dist-only's (b) and (c)
 # card's, of the largest |logit| (phase 6's bf16 gate for kernel vs plain;
 # the partial sums of the sharded products round apart in bf16)
 DIST_BF16_TOL = 5e-2
+# --dist-only (c): a prefill's all-gathers over "data" against the local
+# bytes of the weights that FSDP gathers (each once a prefill)
+DIST_GATHER_TOL = 1e-2
+DIST_TRAIN_STEPS = 2    # --dist-only (d): timed steps, after a warm-up
+# (d) against one card from the same seed: the first step's loss within
+# 1e-2 (relative) and its global gradient norm within 2 % in bf16; in fp32
+# at HYBRID_CUT layers each gradient leaf within 1e-4 of its leaf's largest
+# magnitude, the updated params within 1e-4 of the largest |param|
+DIST_LOSS_TOL, DIST_NORM_TOL, DIST_FP32_TOL = 1e-2, 2e-2, 1e-4
 FLASH_BUILD = ("flash_attention", "flash_attention_wgmma")
 # compress_int8 on the card against the CPU: a size that is not a multiple
 # of the 256-element block, several blocks, and a block of zeros
@@ -4552,14 +4571,24 @@ def dist_path(dev):
     return out
 
 
-def _collectives(fn):
-    """fn()'s result and the collectives DTensor issued in it, by kind:
-    {kind: {"ops": n, "bytes": operand bytes}} (`dryrun.cost_mode`)."""
+def _collectives(fn, mesh):
+    """fn()'s result and the collectives DTensor issued in it on this
+    rank (`dryrun.cost_mode`): {"ops": n, "bytes": {kind: operand bytes},
+    "by_axis": {"<kind> over <mesh axis>": {"ops", "bytes"}}}."""
     from repro_torch.launch import dryrun
-    with dryrun.counting(dryrun.cost_mode()) as cost:
+    with dryrun.counting(dryrun.cost_mode(mesh)) as cost:
         out = fn()
     return out, dict(ops=cost.collective_ops, bytes={
-        k: v for k, v in cost.collective_kinds.items() if v})
+        k: v for k, v in cost.collective_kinds.items() if v},
+        by_axis=cost.collective_axes)
+
+
+def _over(coll, kind: str, axes) -> int:
+    """Operand bytes of `coll`'s (`_collectives`) collectives of `kind`
+    whose group spans any of the mesh axes `axes`."""
+    return sum(c["bytes"] for label, c in coll["by_axis"].items()
+               if label.split(" over ")[0] == kind
+               and set(label.split(" over ")[1].split("+")) & set(axes))
 
 
 def _rank_profile(fn) -> dict:
@@ -4599,22 +4628,29 @@ def _rank_profile(fn) -> dict:
 
 def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
     """--dist-only (c): qwen2-vl-72b at all its layers, bf16, every matrix
-    split over both axes of the (2, 2) mesh by the sharding rules (DTensor
-    all-reduces activation partial sums; no weight is gathered): the
-    weights drawn leaf by leaf on every rank from a generator seeded 0,
-    each rank keeping its shard (`param_placer`); prefill of b x s
-    (patches + tokens, [3, B, S] grid positions) with attn_impl="flash"
-    as phase 14 (b) (each rank launches the kernel on its batch and head
-    shard: exactly one launch a layer, on the tensor cores), timed after
-    a warm-up, finite logits; DIST_DECODE decode steps from an empty
-    cache of s + 8 slots, timed; each card's peak memory; the collectives
-    of one prefill and of one decode step by kind; one more prefill
-    profiled on every card (`_rank_profile`)."""
+    split over both axes of the (2, 2) mesh by the sharding rules, and
+    FSDP x TP as they define it: each layer's weights gathered over
+    "data" where the layer starts (`spmd.gather_weights`), its "model"
+    shards kept. The weights drawn leaf by leaf on every rank from a
+    generator seeded 0, each rank keeping its shard (`param_placer`);
+    prefill of b x s (patches + tokens, [3, B, S] grid positions) with
+    attn_impl="flash" as phase 14 (b) (each rank launches the kernel on
+    its batch and head shard: exactly one launch a layer, on the tensor
+    cores), timed after a warm-up, finite logits; DIST_DECODE decode
+    steps from an empty cache of s + 8 slots, timed; each card's peak
+    memory; the collectives of one prefill and of one decode step by kind
+    and mesh axis, gated on every card: no all-reduce over the data axes
+    in the prefill, and its all-gathers over "data" within 1 % of the
+    local bytes of the data-sharded weights
+    (`dryrun.gathered_bytes_analytic`); one more prefill profiled on
+    every card (`_rank_profile`)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import data_axes
     from repro_torch.models.model import Model
     cfg = get_config(VLM_ARCH, reduced=reduced)
     model = Model(cfg, attn_impl="flash", device=str(dev))
@@ -4658,7 +4694,21 @@ def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
         if finite.item() != 1.0:
             raise AssertionError("80-layer prefill logits are not finite")
         _, coll_prefill = _collectives(lambda: _sharded_prefill(
-            model, params, batch, pos, mesh))
+            model, params, batch, pos, mesh), mesh)
+        fsdp = dict(all_reduce_over_data=_over(coll_prefill, "all-reduce",
+                                               data_axes(mesh)),
+                    all_gather_over_data=_over(coll_prefill, "all-gather",
+                                               ("data",)),
+                    weights_gathered=dryrun.gathered_bytes_analytic(
+                        params, mesh))
+        fsdp["ok"] = fsdp["all_reduce_over_data"] == 0 and abs(
+            fsdp["all_gather_over_data"] - fsdp["weights_gathered"]) <= \
+            DIST_GATHER_TOL * fsdp["weights_gathered"]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, fsdp)
+        if not all(f["ok"] for f in every):
+            raise AssertionError(f"prefill collectives are not FSDP x TP: "
+                                 f"{every}")
         profiles = [None] * dist.get_world_size()
         if dev.type == "cuda":
             dist.all_gather_object(profiles, _rank_profile(
@@ -4680,7 +4730,7 @@ def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
                     lg, st = model.decode_step(params, st, tok)
                 else:
                     (lg, st), coll_decode = _collectives(
-                        lambda: model.decode_step(params, st, tok))
+                        lambda: model.decode_step(params, st, tok), mesh)
                 sync()
                 steps.append((time.perf_counter() - t1) * 1e3)
                 ok = torch.isfinite(lg.to_local()).all().float()
@@ -4699,11 +4749,258 @@ def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
         ms_per_decode_step=sum(steps[1:DIST_DECODE]) / (DIST_DECODE - 1),
         decode_steps_ms=steps[:DIST_DECODE], decode_cache_slots=s + 8,
         peak_memory_bytes=peaks, prefill_profile_by_rank=profiles,
-        collectives_prefill=coll_prefill,
+        collectives_prefill=coll_prefill, fsdp_by_rank=every,
         collectives_decode_step=coll_decode)
     log(f"--dist-only (c) {VLM_ARCH} {cfg.num_layers} layers {cfg.dtype}, "
         f"{n_params / 1e9:.2f} B params, {local_bytes / 2 ** 30:.2f} GiB a "
         f"card: {json.dumps(res, default=str)}")
+    return res
+
+
+def _item(x) -> float:
+    """A 0-d tensor's value (a DTensor's whole value)."""
+    return (x.full_tensor() if hasattr(x, "full_tensor") else x).item()
+
+
+def _layout_matches(mesh, params, tree) -> list:
+    """The paths of `tree`'s leaves (gradients or AdamW's m / v, in
+    `params`' structure) not laid out as the sharding rules' `opt_shardings`
+    lay out AdamW's state."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.dryrun import spec_pairs
+    o_sh = sh.opt_shardings(mesh, None, sh.param_shardings(mesh, params))
+    names = tree_lib.flatten_with_paths(params)[0]
+    return [n for n, (x, spec) in zip(names, spec_pairs(tree, o_sh["m"]))
+            if tuple(x.placements) != sh.placements(mesh, spec)]
+
+
+def _sharded_batch(tr, step: int, mesh):
+    """The trainer's batch of `step`, laid out by `batch_shardings`."""
+    from repro_torch.launch import shardings as sh
+    batch = tr.data.batch_at(step)
+    return sh.distribute(batch, mesh, sh.batch_shardings(mesh, batch),
+                         src_data_rank=None)
+
+
+def dist_train_fp32(mesh, dev, arch, reduced, b, s, ckpt_dir) -> dict:
+    """(d) in fp32 (TF32 off) at HYBRID_CUT layers (two groups; the
+    reduced config with `reduced`): one `Trainer` step's gradients
+    (`loss_and_grads`) and AdamW update of the params laid out by the
+    sharding rules against the same step of the plain params on this
+    card: each gradient leaf within DIST_FP32_TOL of its leaf's largest
+    magnitude, the updated params within DIST_FP32_TOL of the largest
+    |param| (AdamW's first step moves an element by lr * g / (|g| +
+    eps): where g is near zero the two sides' rounding moves it
+    differently by up to 2 lr, which a leaf initialised at zero, a norm
+    scale, cannot be held to relative to itself; the per-leaf worst is
+    reported), every gradient laid out as its AdamW state."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32") if reduced else \
+        _cut(arch, layers=HYBRID_CUT, dtype="float32")
+    model = Model(cfg, attn_impl="blockwise", remat="full", device=str(dev))
+    tr = _trainer(model, b, s, 1, ckpt_dir)
+    plain = model.init(torch.Generator(device=dev).manual_seed(0))
+    # a copy: a replicated DTensor's local tensor may be the plain leaf,
+    # which the plain update writes in place
+    dparams = sh.distribute(tree_lib.map_leaves(torch.clone, plain), mesh,
+                            sh.param_shardings(mesh, plain),
+                            src_data_rank=None)
+    loss, grads = tr.loss_and_grads(plain, tr.data.batch_at(0))
+    adamw.adamw_update(tr.opt_cfg, plain, grads, adamw.adamw_init(plain))
+    with implicit_replication():
+        dloss, dgrads = tr.loss_and_grads(dparams, _sharded_batch(tr, 0,
+                                                                  mesh))
+        misplaced = _layout_matches(mesh, dparams, dgrads)
+        adamw.adamw_update(tr.opt_cfg, dparams, dgrads,
+                           adamw.adamw_init(dparams))
+    names = tree_lib.flatten_with_paths(plain)[0]
+
+    def worst(xs, ds):
+        """(worst error over its leaf's largest magnitude, that leaf,
+        worst error over the tree's largest magnitude)."""
+        out, err_all, top_all = (0.0, None), 0.0, 0.0
+        for n, x, d in zip(names, tree_lib.leaves(xs), tree_lib.leaves(ds)):
+            err = (d.full_tensor() - x).abs().max().item()
+            top = x.abs().max().item()
+            rel = err / top if top else (0.0 if err == 0 else float("inf"))
+            out = max(out, (rel, n))
+            err_all, top_all = max(err_all, err), max(top_all, top)
+        return out + (err_all / top_all,)
+    g_rel, g_leaf, _ = worst(grads, dgrads)
+    p_leaf_rel, p_leaf, p_rel = worst(plain, dparams)
+    res = dict(layers=cfg.num_layers, batch=b, seq_len=s,
+               loss=loss.item(), sharded_loss=_item(dloss),
+               grad_worst_rel=g_rel, grad_worst_leaf=g_leaf,
+               param_worst_rel=p_rel, param_leaf_worst_rel=p_leaf_rel,
+               param_worst_leaf=p_leaf, tolerance=DIST_FP32_TOL,
+               leaves=len(names), misplaced_grads=misplaced)
+    log(f"--dist-only (d) fp32 {arch} {cfg.num_layers} layers, B={b} "
+        f"S={s}: {res}")
+    if misplaced:
+        raise AssertionError(f"gradients not laid out as AdamW's state: "
+                             f"{misplaced[:5]}")
+    if not (g_rel <= DIST_FP32_TOL and p_rel <= DIST_FP32_TOL):
+        raise AssertionError(f"fp32 sharded step off the plain one: {res}")
+    return res
+
+
+def dist_train(mesh, dev, reduced=False) -> dict:
+    """--dist-only (d): zamba2-2.7b at full size (the reduced config with
+    `reduced`), bf16, remat "full", attn_impl "blockwise", B=TRAIN_B x
+    S=TRAIN_S, trained on the (2, 2) mesh: params drawn by `param_placer`
+    (seed 0), AdamW's state by `adamw_init` (its placements
+    `opt_shardings`'), each batch by `batch_shardings`; one warm-up step
+    (`Trainer.loss_and_grads`, then `adamw_update`: `train_step`'s two
+    halves) with its collectives counted by kind and mesh axis and every
+    gradient laid out as its AdamW state (the weights' gradients
+    reduce-scattered over "data", no all-reduce of whole gradients), then
+    DIST_TRAIN_STEPS timed `Trainer.train_step`s and one profiled on
+    every card; on the card exactly 90 mamba_scan and 45 mamba_scan_bwd
+    launches a step on every card (each on its batch and head shard) and
+    nothing else. Then, the sharded state freed, rank 0 alone runs the
+    warm-up step from the same seed on plain tensors (the others wait):
+    its loss within DIST_LOSS_TOL (relative) and global gradient norm
+    within DIST_NORM_TOL of the sharded step's. Last
+    `dist_train_fp32`."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    arch = "zamba2-2.7b"
+    cuda = dev.type == "cuda"
+    cfg = get_config(arch, reduced=reduced)
+    b, s = (2, 64) if reduced else (TRAIN_B, TRAIN_S)
+    n_ssm = _n_blocks(cfg, "ssm")
+    # on CPU tensors the wrappers run their plain versions: no launch
+    want = {"mamba_scan": 2 * n_ssm, "mamba_scan_bwd": n_ssm} if cuda \
+        else {}
+    model = Model(cfg, attn_impl="blockwise", remat="full", device=str(dev))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_train_")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+    try:
+        tr = _trainer(model, b, s, DIST_TRAIN_STEPS + 2, ckpt_dir)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            place=sh.param_placer(mesh))
+        opt = adamw.adamw_init(params)
+        misplaced = _layout_matches(mesh, params, opt["m"]) + \
+            _layout_matches(mesh, params, opt["v"])
+        if misplaced:
+            raise AssertionError(f"AdamW state not laid out by "
+                                 f"opt_shardings: {misplaced[:5]}")
+        walls, launches = [], []
+        for step in range(DIST_TRAIN_STEPS + 1):
+            db = _sharded_batch(tr, step, mesh)
+            sync()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with implicit_replication():
+                if step == 0:
+                    def warm():
+                        loss, grads = tr.loss_and_grads(params, db)
+                        m = adamw.adamw_update(tr.opt_cfg, params, grads,
+                                               opt)[2]
+                        return loss, grads, m
+                    (loss, grads, metrics), coll = _collectives(warm, mesh)
+                    misplaced = _layout_matches(mesh, params, grads)
+                    del grads
+                    first = dict(loss=_item(loss),
+                                 grad_norm=_item(metrics["grad_norm"]))
+                else:
+                    _, _, metrics = tr.train_step(params, opt, db)
+                    _item(metrics["loss"])      # the step's host sync
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(ops.launches))
+            _only(launches[-1], want)
+        if misplaced:
+            raise AssertionError(f"gradients not laid out as AdamW's "
+                                 f"state: {misplaced[:5]}")
+        gather = dryrun.gathered_bytes_analytic(params, mesh)
+        profiles = [None] * dist.get_world_size()
+        if cuda:
+            db = _sharded_batch(tr, DIST_TRAIN_STEPS + 1, mesh)
+
+            def profiled():
+                with implicit_replication():
+                    tr.train_step(params, opt, db)
+            dist.all_gather_object(profiles, _rank_profile(profiled))
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, peak)
+        del params, opt, db, metrics, loss
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        ref = [None]
+        if dist.get_rank() == 0:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            one = model.init(torch.Generator(device=dev).manual_seed(0))
+            _, _, m1 = tr.train_step(one, adamw.adamw_init(one),
+                                     tr.data.batch_at(0))
+            ref = [dict(loss=m1["loss"].item(),
+                        grad_norm=m1["grad_norm"].item(),
+                        peak_memory_bytes=torch.cuda.max_memory_allocated()
+                        if cuda else 0)]
+            del one, m1
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.broadcast_object_list(ref, src=0)
+        ref = ref[0]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ms = sum(walls[1:]) / DIST_TRAIN_STEPS
+    res = dict(
+        arch=arch, layers=cfg.num_layers, dtype=cfg.dtype, remat="full",
+        mesh=list(mesh.shape), batch=b, seq_len=s,
+        steps_ms=walls, ms_per_step=ms, train_tok_per_s=b * s / ms * 1e3,
+        launches_per_step=launches, peak_memory_bytes=peaks,
+        profile_by_rank=profiles, collectives_step=coll,
+        weights_gathered_once=gather,
+        all_reduce_over_data=_over(coll, "all-reduce", data_axes(mesh)),
+        first_step=first, one_card=ref,
+        loss_rel_err=abs(first["loss"] - ref["loss"]) / abs(ref["loss"]),
+        grad_norm_rel_err=abs(first["grad_norm"] - ref["grad_norm"])
+        / ref["grad_norm"])
+    log(f"--dist-only (d) {arch} {cfg.num_layers} layers {cfg.dtype} "
+        f"trained on a {tuple(mesh.shape)} mesh: "
+        f"{json.dumps(res, default=str)}")
+    if not (res["loss_rel_err"] <= DIST_LOSS_TOL
+            and res["grad_norm_rel_err"] <= DIST_NORM_TOL):
+        raise AssertionError(f"sharded step off one card's: loss "
+                             f"{first} vs {ref}")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_train_")
+    try:
+        res["fp32"] = dist_train_fp32(mesh, dev, arch, reduced, b, s,
+                                      ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     return res
 
 
@@ -4712,10 +5009,12 @@ def dist_only(device: str) -> int:
     (RANK, LOCAL_RANK, WORLD_SIZE and the rendezvous from its
     environment): (a) `compression_check` over the 4-rank data axis of a
     (4, 1) mesh, (b) `dist_vlm_small` and `dist_flash_small` (fp32, bf16)
-    on the (2, 2) mesh, (c) `dist_full`. With device "cpu" (a
-    rehearsal: gloo, the reduced config, B=2 x S=64) the same on the CPU.
-    Only rank 0 prints; the only kernel built is flash_attention, which
-    (b) and (c) run."""
+    on the (2, 2) mesh, (c) `dist_full` (qwen2-vl-72b's prefill and
+    decode), (d) `dist_train` (zamba2-2.7b's train step); every weight
+    gathered over "data" where its layer starts (FSDP x TP). With device
+    "cpu" (a rehearsal: gloo, the reduced configs, B=2 x S=64) the same
+    on the CPU. Only rank 0 prints; the kernels built are those (b)-(d)
+    run: flash_attention and mamba_scan (with its backward)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -4747,9 +5046,9 @@ def dist_only(device: str) -> int:
         del params
         if not cpu:
             torch.cuda.empty_cache()
-            if dist.get_rank() == 0:      # the one kernel of this path
+            if dist.get_rank() == 0:      # the kernels of this path
                 from repro_torch.kernels import build
-                build.build_all(FLASH_BUILD)
+                build.build_all(FLASH_BUILD + ("mamba_scan",))
             dist.barrier()
         out["flash_fp32"] = dist_flash_small(mesh, dev, "float32", 1e-4,
                                              **kw)
@@ -4758,6 +5057,14 @@ def dist_only(device: str) -> int:
         if not cpu:
             torch.cuda.empty_cache()
         out["full"] = dist_full(mesh, dev, **kw)
+        if not cpu:
+            out["cards_after_c"] = cards()
+            log(f"cards after (c): {out['cards_after_c']}")
+            torch.cuda.empty_cache()
+        out["train"] = dist_train(mesh, dev, reduced=cpu)
+        if not cpu:
+            out["cards_after_d"] = cards()
+            log(f"cards after (d): {out['cards_after_d']}")
         out["seconds"] = time.perf_counter() - t0
         if dist.get_rank() == 0:
             out_dir = ROOT / "build"

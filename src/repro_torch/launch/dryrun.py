@@ -5,6 +5,8 @@ with nothing allocated, and record its per-device cost for the roofline.
     python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
     python -m repro_torch.launch.dryrun --all              # 33 cells
     python -m repro_torch.launch.dryrun --all --multi-pod  # 512-rank mesh
+    python -m repro_torch.launch.dryrun --arch zamba2-2.7b --shape train_4k \
+        --host-mesh 2x2 --batch 2 --seq 4096 --remat full    # four cards
 
 Where the JAX package lowers and compiles each cell for 512 fake host
 devices, the port
@@ -23,17 +25,23 @@ devices, the port
     every operator that is not a view: like XLA:CPU's count, an unfused
     upper bound) and the operand bytes of every collective DTensor issues
     (`_c10d_functional.*`), by kind (the counterpart of the HLO parse of
-    `collective_bytes`). The mamba_scan kernel counts as the card runs
-    it: one operator, its inputs read and its outputs written once
-    (`scan_as_kernel`).
+    `collective_bytes`) and, under `collective_axes`, by kind and the
+    mesh axis of the collective's group ("all-gather over data",
+    "all-reduce over model", ...). The mamba_scan kernel counts as the
+    card runs it: one operator, its inputs read and its outputs written
+    once (`scan_as_kernel`).
 
 The port runs its layers in a Python loop, not a scan, so the full
 config's operators are counted directly: the JAX package's rolled program
 and its unrolled 1- and 2-unit probes with linear extrapolation
 (`probe_config`, `set_scan_unroll`) have no counterpart, and a record has
-no "probe". XLA's memory analysis has none either: its four fields are
-null. `arg_bytes_per_device_analytic` is JAX's formula (each argument
-leaf's bytes over the product of the mesh axes its spec names).
+no "probe". XLA's memory analysis has its counterpart in the same run:
+the four `MEMORY_FIELDS` count the local storages the step's operators
+allocate and free (`_fake_cost`), a lower bound on what a card's
+allocator holds (no fragmentation, cuBLAS workspaces or NCCL buffers).
+`arg_bytes_per_device_analytic` is JAX's formula (each argument leaf's
+bytes over the product of the mesh axes its spec names). `--host-mesh
+2x2 --batch 2 --seq 4096` models a run on four cards instead.
 
 On the CPU process group DTensor turns a shard-to-shard redistribution
 into an all-gather and a local chunk (it has no all-to-all there): such
@@ -49,13 +57,15 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs import get_config, list_archs
-from repro_torch.configs.shapes import SHAPES, SHAPE_ORDER, applicable
+from repro_torch.configs.shapes import (SHAPES, SHAPE_ORDER, ShapeSpec,
+                                        applicable)
 from repro_torch.launch import shardings as sh
-from repro_torch.launch.mesh import axis_sizes, production_shape
+from repro_torch.launch.mesh import (POD_AXES, AbstractMesh, axis_sizes,
+                                     production_shape)
 
 OUT_DIR = os.path.join("build", "dryrun")
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -88,18 +98,38 @@ def _tensors(tree) -> List[Any]:
     return out
 
 
-def cost_mode():
+def group_axes(mesh) -> Dict[str, str]:
+    """{process group name: the mesh axis, or axes joined by "+", that it
+    spans} for every dim of `mesh` and for the default group (all axes):
+    what `cost_mode` labels a collective's group with."""
+    import torch.distributed as dist
+    names = tuple(mesh.mesh_dim_names)
+    out = {dist.group.WORLD.group_name: "+".join(names)}
+    for i, name in enumerate(names):
+        out[mesh.get_group(i).group_name] = name
+    return out
+
+
+def cost_mode(mesh=None):
     """A dispatch mode over the operators on local tensors: `flops`,
-    `bytes_accessed`, and collectives (`collective_kinds` bytes by kind,
-    `collective_ops`). Operators on DTensors are let through (returning
-    NotImplemented) so that DTensor runs them on the local shards, which
-    come back through the mode. The operators DTensor's sharding
-    propagation runs on whole-shape fake tensors to infer layouts are not
-    counted (`pause`)."""
+    `bytes_accessed`, collectives (`collective_kinds` operand bytes by
+    kind, `collective_ops`, and `collective_axes` {"<kind> over <axis>":
+    {"ops", "bytes"}}, the axis of the collective's group on `mesh`
+    (`group_axes`; without a mesh, or for a group of none of its dims, the
+    group's name)) and live bytes (`live`, `peak_live`: the bytes of the
+    storages that the operators created and that are still referenced,
+    and the most of them at once; a storage is counted once, when an
+    operator first returns it, and freed when Python lets go of it).
+    Operators on DTensors are let through (returning NotImplemented) so
+    that DTensor runs them on the local shards, which come back through
+    the mode. The operators DTensor's sharding propagation runs on
+    whole-shape fake tensors to infer layouts are not counted (`pause`)."""
+    import weakref
     import torch
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
+    axes_of = group_axes(mesh) if mesh is not None else {}
 
     class _Mode(TorchDispatchMode):
         def __init__(self):
@@ -107,8 +137,12 @@ def cost_mode():
             self.flops = 0
             self.bytes_accessed = 0
             self.collective_kinds = {k: 0 for k in COLLECTIVES}
+            self.collective_axes: Dict[str, Dict[str, int]] = {}
             self.collective_ops = 0
+            self.live = 0
+            self.peak_live = 0
             self.paused = 0
+            self._seen = weakref.WeakSet()
 
         @contextlib.contextmanager
         def pause(self):
@@ -117,6 +151,23 @@ def cost_mode():
                 yield
             finally:
                 self.paused -= 1
+
+        def _free(self, n: int):
+            self.live -= n
+
+        def track(self, out, inputs=()):
+            """Count the storages of `out` that are new to the mode and
+            not those of `inputs` (a view, an in-place result)."""
+            old = {id(x.untyped_storage()) for x in _tensors(inputs)}
+            for x in _tensors(out):
+                st = x.untyped_storage()
+                if id(st) in old or st in self._seen:
+                    continue
+                self._seen.add(st)
+                n = st.nbytes()
+                self.live += n
+                weakref.finalize(st, self._free, n)
+            self.peak_live = max(self.peak_live, self.live)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
@@ -129,16 +180,25 @@ def cost_mode():
             if name == "_c10d_functional":
                 op = func.__name__
                 if not op.startswith(_FUNCOL_NOT_COLLECTIVES):
+                    self.track(out, (args, kwargs))
                     kind = next((k for key, k in _FUNCOL_KIND
                                  if key in op), None)
                     if kind is None:
                         raise NotImplementedError(
                             f"collective {func} has no kind")
+                    group = kwargs.get("group_name", args[-1])
+                    group = getattr(group, "group_name", group)
+                    n = sum(_tensor_bytes(x) for x in _tensors(
+                        (args, kwargs)))
                     self.collective_ops += 1
-                    self.collective_kinds[kind] += sum(
-                        _tensor_bytes(x) for x in _tensors(
-                            (args, kwargs)))
+                    self.collective_kinds[kind] += n
+                    rec = self.collective_axes.setdefault(
+                        f"{kind} over {axes_of.get(group, group)}",
+                        {"ops": 0, "bytes": 0})
+                    rec["ops"] += 1
+                    rec["bytes"] += n
                 return out
+            self.track(out, (args, kwargs))
             packet = func._overloadpacket
             if packet in flop_registry:
                 self.flops += int(flop_registry[packet](
@@ -181,6 +241,7 @@ def scan_as_kernel(mode):
 
     def count(ins, outs):
         mode.bytes_accessed += sum(_tensor_bytes(x) for x in ins + outs)
+        mode.track(outs)
         return outs
 
     def fwd(a, b, h0):
@@ -200,13 +261,18 @@ def scan_as_kernel(mode):
         yield
 
 
-def build_step(model, shape_name: str, mesh, variant: str = ""):
+def _shape(shape) -> ShapeSpec:
+    """A shape's name (`SHAPES`) or a ShapeSpec, as a ShapeSpec."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def build_step(model, shape, mesh, variant: str = ""):
     """Returns (fn, arg_specs tuple, spec trees tuple): the step function
-    of the shape's mode, its arguments as "meta" trees, and their specs
-    on `mesh` (an AbstractMesh will do)."""
+    of the shape's mode (`shape` a name or a ShapeSpec), its arguments as
+    "meta" trees, and their specs on `mesh` (an AbstractMesh will do)."""
     from repro_torch.optim import adamw
     cfg = model.cfg
-    spec = SHAPES[shape_name]
+    spec = _shape(shape)
     params_shape = model.param_specs()
     p_sh = sh.param_shardings(mesh, params_shape, variant)
 
@@ -270,6 +336,25 @@ def spec_pairs(tree: Any, specs: Any) -> List[Tuple[Any, Any]]:
     return out
 
 
+def gathered_bytes_analytic(params, mesh) -> int:
+    """Local bytes of the weights that `spmd.gather_weights` gathers over
+    the data axes (each leaf whose placements by the sharding rules it
+    changes, its bytes over the mesh dims sharding it): a prefill's
+    all-gathers over "data" when each weight is gathered once."""
+    from repro_torch.models.spmd import gathered_placements
+    sizes = axis_sizes(mesh)
+    total = 0
+    for leaf, spec in spec_pairs(params, sh.param_shardings(mesh, params)):
+        place = sh.placements(mesh, spec)
+        if gathered_placements(mesh, place) == place:
+            continue
+        n = leaf.numel() * leaf.element_size()
+        for name, p in zip(mesh.mesh_dim_names, place):
+            n //= sizes[name] if p.is_shard() else 1
+        total += n
+    return total
+
+
 def arg_bytes_analytic(arg_shapes, arg_specs, mesh) -> float:
     """Per-device argument bytes: each tensor leaf's bytes over the
     product of the mesh axes its spec names (JAX's formula)."""
@@ -314,13 +399,35 @@ def fake_group(world_size: int):
         dist.destroy_process_group()
 
 
-def _fake_cost(model, shape_name: str, mesh, variant: str) -> Dict:
-    """Run the cell's step once on fake DTensors; its CostMode counts."""
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under `tree` (a DTensor's local
+    shard's), what its tensors hold on one device."""
+    from torch.distributed.tensor import DTensor
+    seen = {}
+    for x in _tensors(tree):
+        if isinstance(x, DTensor):
+            x = x.to_local()
+        st = x.untyped_storage()
+        seen[id(st)] = st.nbytes()
+    return sum(seen.values())
+
+
+def _fake_cost(model, shape, mesh, variant: str) -> Dict:
+    """Run the cell's step once on fake DTensors; its CostMode counts, and
+    the memory fields: `argument_size_in_bytes` (the arguments' local
+    shards), `output_size_in_bytes` (the result's local tensors, an
+    argument updated in place included), `temp_size_in_bytes` (the most
+    bytes that the step's operators allocated and still held at once:
+    intermediates, gathered weights, saved activations, outputs) and
+    `peak_memory_in_bytes` (their sum with the arguments). Counted on the
+    local storages the operators return (`cost_mode`'s live bytes), as a
+    caching allocator would see them with no fragmentation, no
+    workspaces and no communication buffers."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.models import moe as moe_lib
-    fn, arg_shapes, arg_specs = build_step(model, shape_name, mesh, variant)
+    fn, arg_shapes, arg_specs = build_step(model, shape, mesh, variant)
 
     def fake(leaf):
         if not isinstance(leaf, torch.Tensor):
@@ -332,8 +439,11 @@ def _fake_cost(model, shape_name: str, mesh, variant: str) -> Dict:
             args = [sh.distribute(tree_lib.map_leaves(fake, tree), mesh,
                                   specs, src_data_rank=None)
                     for tree, specs in zip(arg_shapes, arg_specs)]
-            with counting(cost_mode()) as cost, scan_as_kernel(cost):
-                fn(*args)
+            arg_bytes = storage_bytes(args)
+            with counting(cost_mode(mesh)) as cost, scan_as_kernel(cost):
+                out = fn(*args)
+                out_bytes = storage_bytes(out)
+                del out
     finally:
         moe_lib.set_sharding_hints(None)
     return dict(flops=float(cost.flops),
@@ -341,17 +451,28 @@ def _fake_cost(model, shape_name: str, mesh, variant: str) -> Dict:
                 collective_bytes=float(sum(cost.collective_kinds.values())),
                 collective_ops=cost.collective_ops,
                 collective_kinds={k: float(v) for k, v in
-                                  cost.collective_kinds.items()})
+                                  cost.collective_kinds.items()},
+                collective_axes=cost.collective_axes,
+                temp_size_in_bytes=cost.peak_live,
+                argument_size_in_bytes=arg_bytes,
+                output_size_in_bytes=out_bytes,
+                peak_memory_in_bytes=arg_bytes + cost.peak_live)
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              remat: str = "dots", out_dir: str = OUT_DIR,
              variant: str = "", expert_gather: bool = False,
-             kv_bits: int = 16, cfg=None) -> Dict:
+             kv_bits: int = 16, cfg=None,
+             host_mesh: Optional[Tuple[int, int]] = None,
+             batch: Optional[int] = None, seq: Optional[int] = None
+             ) -> Dict:
     """One (arch x shape x mesh) cell: the record, also written to
     out_dir/<cell>.json. `cfg` replaces the published config (tests cut
-    its depth). Raises if the step fails."""
-    from repro_torch.launch.mesh import make_production_mesh
+    its depth). `host_mesh` (data, model) replaces the production mesh
+    (e.g. the four cards' (2, 2)), and `batch` / `seq` the shape's global
+    batch and sequence length: the model of a run on cards one can hold
+    against it. Raises if the step fails."""
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models.model import Model
     cfg = cfg or get_config(arch)
     if expert_gather or kv_bits != 16:
@@ -359,37 +480,45 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             cfg.hades, expert_gather_decode=expert_gather,
             kv_quant_bits=kv_bits))
     ok, why = applicable(cfg, shape_name)
-    mesh_name = "pod512" if multi_pod else "pod256"
+    spec = SHAPES[shape_name]
+    if batch or seq:
+        b, s = batch or spec.global_batch, seq or spec.seq_len
+        spec = ShapeSpec(f"{shape_name}_b{b}_s{s}", s, b, spec.mode)
+    if host_mesh:
+        abstract = AbstractMesh(tuple(host_mesh), POD_AXES)
+        mesh_name = "host{}x{}".format(*host_mesh)
+    else:
+        abstract = production_shape(multi_pod)
+        mesh_name = "pod512" if multi_pod else "pod256"
     tag = f"_{variant}" if variant else ""
     tag += "_eg" if expert_gather else ""
     tag += f"_kv{kv_bits}" if kv_bits != 16 else ""
-    cell = f"{arch}_{shape_name}_{mesh_name}{tag}"
+    cell = f"{arch}_{spec.name}_{mesh_name}{tag}"
     if not ok:
         print(f"[skip] {cell}: {why}")
         return {"cell": cell, "skipped": why}
     t0 = time.time()
-    abstract = production_shape(multi_pod)
-    spec = SHAPES[shape_name]
     mode = spec.mode
     model = Model(cfg, attn_impl="blockwise",
                   remat=remat if mode == "train" else "none", device="cpu")
-    _, arg_shapes, arg_specs = build_step(model, shape_name, abstract,
-                                          variant)
+    _, arg_shapes, arg_specs = build_step(model, spec, abstract, variant)
     arg_analytic = arg_bytes_analytic(arg_shapes, arg_specs, abstract)
     with fake_group(abstract.size):
-        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-        cost = _fake_cost(model, shape_name, mesh, variant)
+        mesh = make_host_mesh(host_mesh[1], "cpu") if host_mesh else \
+            make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        cost = _fake_cost(model, spec, mesh, variant)
     result = {
         "cell": cell, "arch": arch, "shape": shape_name,
-        "mesh": list(abstract.shape), "chips": abstract.size,
+        "mesh": list(abstract.shape),
+        "mesh_axes": list(abstract.mesh_dim_names), "chips": abstract.size,
         "variant": variant, "expert_gather": expert_gather,
-        "kv_bits": kv_bits, "mode": mode,
+        "kv_bits": kv_bits, "mode": mode, "remat": model.remat,
+        "global_batch": spec.global_batch, "seq_len": spec.seq_len,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "tokens": spec.global_batch * (spec.seq_len if mode != "decode"
                                        else 1),
         "arg_bytes_per_device_analytic": arg_analytic,
-        **{k: None for k in MEMORY_FIELDS},
         "n_units": n_units_of(cfg), **cost,
         "run_s": round(time.time() - t0, 1),
     }
@@ -397,7 +526,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     with open(os.path.join(out_dir, cell + ".json"), "w") as f:
         json.dump(result, f, indent=1)
     print(f"[ok] {cell}: {result['run_s']}s, args "
-          f"~{arg_analytic / 2 ** 30:.2f} GiB/dev, flops "
+          f"~{arg_analytic / 2 ** 30:.2f} GiB/dev, peak "
+          f"{result['peak_memory_in_bytes'] / 2 ** 30:.2f} GiB/dev, flops "
           f"{result['flops']:.3e}, bytes {result['bytes_accessed']:.3e}, "
           f"coll {result['collective_bytes']:.3e}", flush=True)
     return result
@@ -415,7 +545,16 @@ def main(argv=None):
     ap.add_argument("--variant", default="")
     ap.add_argument("--expert-gather", action="store_true")
     ap.add_argument("--kv-bits", type=int, default=16)
+    ap.add_argument("--host-mesh", default=None, metavar="DxM",
+                    help="a (data, model) mesh of D x M ranks in place of "
+                    "the production one, e.g. 2x2 for four cards")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="the shape's global batch in place of its own")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="the shape's sequence length in place of its own")
     args = ap.parse_args(argv)
+    host = tuple(int(x) for x in args.host_mesh.split("x")) \
+        if args.host_mesh else None
 
     archs = list_archs() if (args.all or args.arch is None) \
         else [args.arch]
@@ -431,7 +570,8 @@ def main(argv=None):
                     run_cell(arch, shp, multi_pod=mp, remat=args.remat,
                              out_dir=args.out, variant=args.variant,
                              expert_gather=args.expert_gather,
-                             kv_bits=args.kv_bits)
+                             kv_bits=args.kv_bits, host_mesh=host,
+                             batch=args.batch, seq=args.seq)
                 except Exception as e:  # noqa: BLE001 -- counted, exit 1
                     failures.append((arch, shp, mp, repr(e)))
                     print(f"[FAIL] {arch} {shp} multi_pod={mp}: {e}")

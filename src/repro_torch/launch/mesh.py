@@ -35,6 +35,8 @@ PEAK_OPS = {"bf16": 989e12,       # op/s by operand type: tensor cores,
 HBM_BW = 3.35e12                  # bytes/s, HBM3
 LINK_BW = 450e9                   # bytes/s each way, NVLink 4 (900 GB/s
 #                                   both ways): the data / model axes
+POD_LINK_BW = 50e9                # bytes/s each way, a GPU's InfiniBand
+#                                   NDR port (400 Gb/s): the pod axis
 HBM_BYTES = 80e9                  # 80 GB of HBM3
 
 POD_SHAPE, POD_AXES = (16, 16), ("data", "model")
@@ -117,6 +119,13 @@ def make_host_mesh(model_axis: int = 1, device_type: str = "cuda"):
                          f"{model_axis}")
     return _device_mesh(device_type, (n // model_axis, model_axis),
                         POD_AXES)
+
+
+def link_bw(axes: str) -> float:
+    """Bytes/s each way of the link a collective over `axes` (an axis
+    name, or names joined by "+") crosses: InfiniBand if it spans the
+    pod axis, NVLink inside a pod."""
+    return POD_LINK_BW if "pod" in axes.split("+") else LINK_BW
 
 
 def data_axes(mesh) -> tuple:

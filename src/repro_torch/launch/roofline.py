@@ -6,11 +6,17 @@ Per (arch x shape) cell on the single-pod mesh, three terms (seconds):
 
     compute    = FLOPs_per_device / PEAK_FLOPS_BF16     (dry run)
     memory     = modeled_HBM_bytes_per_device / HBM_BW  (analytic, below)
-    collective = collective_bytes / (chips * LINK_BW)   (dry run)
+    collective = sum over (kind, axis) of
+                 wire_bytes(kind, axis) / link_bw(axis) (dry run)
 
 FLOPs and collective bytes come from the dry run (`launch/dryrun.py`:
 the operators each rank runs on its shards, and the operands of the
-collectives DTensor issues). The dry run's `bytes_accessed` counts every
+collectives DTensor issues, by kind and mesh axis). A rank's wire bytes
+are its operand bytes times the ring algorithm's factor on the n ranks
+of the axis (`WIRE`: an all-gather receives n - 1 operands, a
+reduce-scatter sends (n - 1) / n of its operand, an all-reduce twice
+that), over the link that axis crosses (`mesh.link_bw`: NVLink inside a
+pod, InfiniBand across pods). The dry run's `bytes_accessed` counts every
 operator's operands and result unfused, an upper bound on HBM traffic
 (reported as `xla_bytes_dev`, the JAX package's name for it). The MEMORY
 term is analytic: per device, weight streams (incl. FSDP regathers),
@@ -24,13 +30,12 @@ Roofline fraction:
 once, no regathers, active experts only) — so frac < 1 decomposes into
 remat waste, regather waste, cold-expert streaming, dispatch overhead.
 
-Two choices of the JAX package's model are kept, so that the table
-compares with its one to one, and both flatter the cells: the dry run's
-collective bytes are already per rank, and the collective term divides
-them by `chips * LINK_BW` (a 256- or 512-fold understatement, so no cell
-comes out collective-bound); and frac is capped at 1.0. `main` prints,
-after the table, t_useful / t_bound before the cap for each cell the cap
-hides (`ideal_over_bound`).
+The collective term departs from the JAX package's, which divides the
+per-rank bytes once more by the chip count (`collective_bytes / (chips *
+ICI_BW)`, so that no cell can come out collective-bound); the compute and
+memory terms, MODEL/HLO and the cap of frac at 1.0 are JAX's. Each row
+also carries t_useful / t_bound before the cap (`ideal_over_bound`),
+which the table prints beside the capped fraction.
 
     python -m repro_torch.launch.roofline [--dir build/dryrun] [--fmt csv]
 """
@@ -46,11 +51,18 @@ from typing import Dict, List, Optional
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.launch.dryrun import OUT_DIR
-from repro_torch.launch.mesh import HBM_BW, LINK_BW, PEAK_FLOPS_BF16
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, link_bw
 
 MSZ = DSZ = 16          # single-pod mesh axes
 ACT_C_ATTN = 12.0       # activation r/w per layer (flash-fused + remat)
 ACT_C_SSM = 24.0        # mamba: d_in = 2*d_model wide intermediates
+# a rank's wire bytes per operand byte, on n ranks (ring algorithms)
+WIRE = {"all-gather": lambda n: n - 1,
+        "reduce-scatter": lambda n: (n - 1) / n,
+        "all-reduce": lambda n: 2 * (n - 1) / n,
+        "all-to-all": lambda n: (n - 1) / n,
+        "collective-permute": lambda n: 1,
+        "broadcast": lambda n: 1}
 
 
 def model_flops(rec: Dict) -> float:
@@ -147,6 +159,21 @@ def _arch_bytes(cfg, shape, chips: int, minimal: bool) -> float:
     return w + opt + act + logits + kv + ssm
 
 
+def collective_seconds(rec: Dict) -> float:
+    """The collective term of a dry-run record: each (kind, axis) entry
+    of its `collective_axes` ("<kind> over <axis>[+<axis>]"), its operand
+    bytes times `WIRE[kind]` on the axis's ranks, over the axis's link."""
+    sizes = dict(zip(rec["mesh_axes"], rec["mesh"]))
+    t = 0.0
+    for label, c in rec["collective_axes"].items():
+        kind, axes = label.split(" over ")
+        n = 1
+        for ax in axes.split("+"):
+            n *= sizes[ax]
+        t += c["bytes"] * WIRE[kind](n) / link_bw(axes)
+    return t
+
+
 def analyse(rec: Dict) -> Optional[Dict]:
     if "skipped" in rec or "flops" not in rec:
         return None
@@ -162,7 +189,7 @@ def analyse(rec: Dict) -> Optional[Dict]:
     modeled = _arch_bytes(cfg, rec["shape"], chips, minimal=False)
     minimal = _arch_bytes(cfg, rec["shape"], chips, minimal=True)
     t_memory = modeled / HBM_BW
-    t_coll = max(rec["collective_bytes"], 0.0) / (chips * LINK_BW)
+    t_coll = collective_seconds(rec)
     terms = {"compute": t_compute, "memory": t_memory, "collective": t_coll}
     dominant = max(terms, key=terms.get)
     t_bound = terms[dominant]
@@ -180,15 +207,8 @@ def analyse(rec: Dict) -> Optional[Dict]:
         # capped at 1.0, as in the JAX package
         "roofline_frac": min(t_ideal / t_bound, 1.0) if t_bound > 0
         else 0.0,
+        "ideal_over_bound": t_ideal / t_bound if t_bound > 0 else 0.0,
     }
-
-
-def ideal_over_bound(row: Dict) -> float:
-    """t_useful / t_bound of an `analyse` row, before the cap at 1.0."""
-    t_bound = max(row["compute_s"], row["memory_s"], row["collective_s"])
-    t_ideal = max(row["model_flops"] / (row["chips"] * PEAK_FLOPS_BF16),
-                  row["minimal_bytes_dev"] / HBM_BW)
-    return t_ideal / t_bound if t_bound > 0 else 0.0
 
 
 def load_all(d: str, mesh: str = "pod256") -> List[Dict]:
@@ -204,21 +224,22 @@ def load_all(d: str, mesh: str = "pod256") -> List[Dict]:
 
 def to_markdown(rows: List[Dict]) -> str:
     hdr = ("| cell | compute s | memory s | collective s | dominant | "
-           "MODEL/HLO | roofline frac |\n"
-           "|---|---|---|---|---|---|---|")
+           "MODEL/HLO | roofline frac | uncapped |\n"
+           "|---|---|---|---|---|---|---|---|")
     lines = [hdr]
     for r in rows:
         lines.append(
             f"| {r['arch']} x {r['shape']} | {r['compute_s']:.3e} | "
             f"{r['memory_s']:.3e} | {r['collective_s']:.3e} | "
             f"**{r['dominant']}** | {r['useful_ratio']:.2f} | "
-            f"{r['roofline_frac']:.3f} |")
+            f"{r['roofline_frac']:.3f} | {r['ideal_over_bound']:.3f} |")
     return "\n".join(lines)
 
 
 def to_csv(rows: List[Dict]) -> str:
     cols = ["arch", "shape", "chips", "compute_s", "memory_s",
-            "collective_s", "dominant", "useful_ratio", "roofline_frac"]
+            "collective_s", "dominant", "useful_ratio", "roofline_frac",
+            "ideal_over_bound"]
     lines = [",".join(cols)]
     for r in rows:
         lines.append(",".join(str(r[c]) for c in cols))
@@ -240,11 +261,6 @@ def main(argv=None):
               f"({worst['roofline_frac']:.3f})")
         print(f"most collective-bound:  {coll['cell']} "
               f"({coll['collective_s']:.3e}s)")
-        capped = [(r["cell"], ideal_over_bound(r)) for r in rows
-                  if ideal_over_bound(r) >= 1.0]
-        if capped:
-            print("capped at 1.0 (t_useful / t_bound before the cap): "
-                  + ", ".join(f"{c} {v:.3f}" for c, v in capped))
 
 
 if __name__ == "__main__":

@@ -3,15 +3,15 @@ optimizer, batch and decode-state specs for every architecture, derived
 from leaf paths and shapes, and their layout as DTensors.
 
 Scheme (the JAX package's):
-  * 2-D weight sharding: every large matrix shards its TP axis (heads /
-    d_ff / experts / vocab) over "model" and its other big axis over
-    "data" (ZeRO-3 style). Tensors whose dims don't divide are left
-    replicated on that axis (MQA kv projections, tiny norms). The rules
-    only place the weights: the collectives of a product are DTensor's
-    sharding propagation's choice. Where XLA's SPMD partitioner gathers
-    a weight's data shards (FSDP), DTensor contracts the data-sharded dim
-    locally and all-reduces the activation-sized partial sums; nothing
-    in the port gathers the weights yet.
+  * 2-D weight sharding = FSDP over "data" x TP over "model": every
+    large matrix shards its TP axis (heads / d_ff / experts / vocab) over
+    "model" and its other big axis over "data" (ZeRO-3 style). Tensors
+    whose dims don't divide are left replicated on that axis (MQA kv
+    projections, tiny norms). The rules place the weights; where XLA's
+    SPMD partitioner inserts the all-gathers, the port's layers gather
+    each weight's data shards where they start (`models/spmd.py`
+    `gather_weights`), and the gradients go back to these placements by
+    reduce-scatter.
   * The "pod" axis carries pure data parallelism: params are NOT sharded
     over pods; the batch is.
   * Decode KV caches shard batch over "data" and cache length over

@@ -132,7 +132,10 @@ def moe_block(p: dict, x: torch.Tensor, cfg, capacity_factor: float = 1.25,
         # it runs whole on every rank (the token shards all-gathered)
         buf, aux_loss, counts, src, w, idx = spmd.replicated(
             _dispatch, p["router"], xf, cfg, g, with_aux)
-        out = spmd.replicated(_combine, _experts(buf, p), src, w, idx)
+        # the experts' rows split over the data axes: with the expert
+        # weights gathered there (FSDP), each data rank runs its share
+        out = spmd.replicated(_combine, _experts(spmd.constrain(buf, dim=1),
+                                                 p), src, w, idx)
         return spmd.constrain(out.reshape(b, s, d)), aux_loss, counts
     buf, aux_loss, counts, src, w, idx = _dispatch(p["router"], xf, cfg, g,
                                                    with_aux)

@@ -28,13 +28,23 @@ over "model" (max, then sums), what the JAX package's SPMD program lowers
 to (a psum over the sharded length).
 
 Likewise the mamba1 scan (`scan`) and mamba2's SSD core (`batch_heads`)
-run on local batch / channel / head shards; the MoE dispatch, which ranks
-every slot among all slots of its expert, runs whole on every rank over
-gathered tokens (`replicated`). `constrain` (the residual stream and its
+run on local batch / channel / head shards, and the embedding lookup
+(`lookup`) on each rank's rows of the vocab; the MoE dispatch, which
+ranks every slot among all slots of its expert, runs whole on every rank
+over gathered tokens (`replicated`). `constrain` (the residual stream and its
 gradient in the batch layout), `pin_grad` (a gradient back in its
 tensor's layout) and `split_heads` (GQA kv heads gathered on "model")
 keep DTensor's propagation away from dims sharded twice, which it has no
-rule for. On plain tensors every function here is the plain call.
+rule for.
+
+The weights follow the sharding rules' scheme, FSDP over the data axes x
+TP over "model": `gather_weights`, called on a layer's parameters where
+they enter its body (inside the rematerialised function), gathers each
+weight's data-axis shards and keeps its "model" shards, so every product
+contracts whole rows and the TP sums over "model" are the only
+activation-sized reductions. Its backward reduce-scatters the weight's
+gradient back to the leaf's own shards. On plain tensors every function
+here is the plain call.
 """
 from __future__ import annotations
 
@@ -79,6 +89,109 @@ def _layout(mesh, batch: Optional[int], heads: Optional[int] = None,
         else:
             out.append(Replicate())
     return tuple(out)
+
+
+def gathered_placements(mesh, placements) -> tuple:
+    """The placements `gather_weights` gives a leaf laid out as
+    `placements` on `mesh`: Replicate on each data-axis mesh dim that
+    shards a tensor dim "model" does not also shard (FSDP's gather), every
+    other placement as it is ("model" shards: TP; a dim split over
+    ("data", "model") together, the "serve_tp" layout, stays). Raises on
+    a placement that is neither Shard nor Replicate (a Partial weight)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    for p in placements:
+        if not isinstance(p, (Shard, Replicate)):
+            raise ValueError(f"gather_weights: placement {p} of "
+                             f"{tuple(placements)} is not Shard / Replicate")
+    model = {p.dim for name, p in zip(names, placements)
+             if name == "model" and isinstance(p, Shard)}
+    data = data_axes(mesh)
+    return tuple(Replicate() if name in data and isinstance(p, Shard)
+                 and p.dim not in model else p
+                 for name, p in zip(names, placements))
+
+
+def gather_weights(tree):
+    """A layer's parameter dict (or list of them, or one leaf) with every
+    DTensor leaf redistributed to `gathered_placements`: each weight
+    gathered over the data axes, its "model" shards kept. The identity on
+    plain tensors and when the data axes have size 1 (the (1, 1) and
+    (1, n) meshes). Called where a layer's weights enter its body, inside
+    the function that `transformer._maybe_remat` wraps: the gathered copy
+    lives for one layer and is gathered again in the recompute, and the
+    redistribution's backward returns the gradient in the leaf's own
+    placements (a reduce-scatter over the data axes of the gradient's
+    partial sums; an all-reduce for a leaf with nothing to gather), which
+    AdamW's state shares."""
+    if isinstance(tree, dict):
+        return {k: gather_weights(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_weights(v) for v in tree)
+    if not is_dtensor(tree) or _data_size(tree.device_mesh) == 1:
+        return tree
+    place = gathered_placements(tree.device_mesh, tree.placements)
+    if place == tuple(tree.placements):
+        # nothing to gather (a replicated norm scale, "serve_tp"): the
+        # gradient, partial over the batch's data axes, is all-reduced
+        # back to the leaf's placements all the same
+        return pin_grad(tree)
+    return tree.redistribute(tree.device_mesh, place)
+
+
+def _partial_on(mesh, place, axes) -> tuple:
+    """`place` with Partial() on each mesh dim named in `axes` where it is
+    Replicate: the layout of the gradient of a local_map input that each
+    rank uses whole but only for its own shard of the work (a weight the
+    batch shards share, kv heads each "model" rank picks from), whose
+    local gradients are that rank's part of the sum."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Partial() if name in axes and p == Replicate() else p
+                 for name, p in zip(mesh.mesh_dim_names, place))
+
+
+def lookup(fn: Callable, table, tokens):
+    """fn(table, tokens), an embedding lookup (`layers.embed`: rows of
+    table [V, D] at tokens [B, ...]). On a DTensor table, each rank looks
+    up its batch shard's tokens (over the data axes, where B divides them)
+    in its shard of the rows (the vocab over "model", where the table has
+    it so), rows outside the shard as zeros, and the result is partial
+    over "model": the next layout redistribution sums it, one row from
+    one rank (vocab-parallel embedding, as XLA partitions a gather from a
+    row-sharded table). The table's gradient stays a local scatter into
+    each rank's rows, partial over the data axes. Plain tensors go to fn
+    as they are."""
+    if not is_dtensor(table):
+        return fn(table, tokens)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    split = "model" in names and \
+        table.placements[names.index("model")] == Shard(0)
+    t_place = tuple(Shard(0) if name == "model" and split else Replicate()
+                    for name in names)
+    i_place = _layout(mesh, tokens.shape[0])
+    out = tuple(Partial() if name == "model" and split else p
+                for name, p in zip(names, i_place))
+
+    def local(table_, tokens_):
+        if not split:
+            return fn(table_, tokens_)
+        rows = table_.shape[0]
+        idx = tokens_.long() - mesh.get_local_rank("model") * rows
+        inside = (idx >= 0) & (idx < rows)
+        got = fn(table_, idx.clamp(0, rows - 1))
+        return torch.where(inside[..., None], got,
+                           torch.zeros((), dtype=got.dtype,
+                                       device=got.device))
+    return local_map(local, out_placements=list(out),
+                     in_placements=(t_place, i_place),
+                     in_grad_placements=(_partial_on(mesh, t_place,
+                                                     data_axes(mesh)),
+                                         i_place),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        table, _as_dtensor(tokens, mesh))
 
 
 def _as_dtensor(x, mesh):
@@ -129,7 +242,10 @@ def attention(fn: Callable, q, k, v, *args, **kw):
 
     places = (q_place, kv_place, kv_place) + tuple(
         _layout(mesh, b) for _ in tensors)
+    kv_grad = _partial_on(mesh, kv_place, ("model",) if pick else ())
     return local_map(local, out_placements=list(q_place), in_placements=places,
+                     in_grad_placements=(q_place, kv_grad, kv_grad)
+                     + places[3:],
                      device_mesh=mesh, redistribute_inputs=True)(
         q, _as_dtensor(k, mesh), _as_dtensor(v, mesh), *tensors)
 
@@ -230,16 +346,20 @@ class _Constrain(torch.autograd.Function):
         return g.redistribute(g.device_mesh, ctx.place), None
 
 
-def constrain(x):
+def constrain(x, dim: int = 0):
     """The residual stream [B, S, D] and its gradient in the batch layout:
     batch over the data axes, whole on "model" (a redistribution, the
     counterpart of JAX's `with_sharding_constraint`); a plain tensor as
     it is. Without it DTensor's propagation may leave the stream, or its
     gradient, sharded over the sequence on "model", which the next
-    flattening product cannot take (a dim sharded twice)."""
+    flattening product cannot take (a dim sharded twice). `dim` names
+    another dim to split over the data axes in place of the batch (the
+    MoE experts' rows [E, G, D] on G: with the experts' weights gathered,
+    each data rank computes its share of the rows)."""
     if not is_dtensor(x):
         return x
-    return _Constrain.apply(x, _layout(x.device_mesh, x.shape[0]))
+    return _Constrain.apply(x, _layout(x.device_mesh, x.shape[dim],
+                                       batch_dim=dim))
 
 
 def pin_grad(x):
@@ -295,9 +415,17 @@ def batch_heads(fn: Callable, heads: int, *args, out):
                        heads if split and hd is not None else None,
                        head_dim=0 if hd is None else hd,
                        batch_dim=0 if bd is None else bd)
+
+    def grad_place(bd, hd):
+        # an input without a batch (head) dim is used whole by every
+        # batch (head) shard: its gradient is partial over those axes
+        return _partial_on(mesh, place(bd, hd), (
+            data_axes(mesh) if bd is None else ()) + (
+            ("model",) if hd is None and split else ()))
     return local_map(
         fn, out_placements=tuple(list(place(bd, hd)) for bd, hd in out),
         in_placements=tuple(place(bd, hd) for _, bd, hd in args),
+        in_grad_placements=tuple(grad_place(bd, hd) for _, bd, hd in args),
         device_mesh=mesh, redistribute_inputs=True)(
         *[_as_dtensor(t, mesh) for t in tensors])
 

@@ -136,7 +136,10 @@ def mamba1_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256,
     if s % c:
         raise ValueError(f"seq {s} % chunk {c} != 0")
 
-    xz = x @ p["in_proj"]
+    # on DTensors the projection's gradient keeps its layout (its width
+    # over "model"): without it the backward runs the block on the whole
+    # batch on every data rank (the dry run's MODEL/HLO 0.23 for 0.81)
+    xz = spmd.pin_grad(x @ p["in_proj"])
     xr, z = xz.chunk(2, dim=-1)                           # [B, S, Din] each
     conv_state = None if state is None else state["conv"]
     xr, new_conv = causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
@@ -158,7 +161,9 @@ def mamba1_forward(p: dict, x: torch.Tensor, cfg, *, chunk: int = 256,
     y = torch.einsum("bscn,bsn->bsc", h_all, cmat.float())  # [B, S, Din]
     y = y + xr32 * p["D"]
     y = y * F.silu(z.float())
-    out = y.to(x.dtype) @ p["out_proj"]
+    # and so does out_proj's input (else the scan's inputs' gradients are
+    # reduce-scattered over "model" at the whole batch: 42 GB a layer)
+    out = spmd.pin_grad(y.to(x.dtype)) @ p["out_proj"]
     return out, {"h": h_last, "conv": new_conv}
 
 

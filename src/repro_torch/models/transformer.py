@@ -27,11 +27,15 @@ port keeps lists, since its layers run as a Python loop (`convert.py`
 unstacks).
 
 The same code runs sharded on DTensor params, inputs and states laid
-out by `launch/shardings.py` (under `implicit_replication()`): DTensor
-propagates the layouts, and `models/spmd.py` takes over where it cannot
-(attention and the scan on local shards, decode over a length-sharded
-cache, the MoE dispatch) and pins the residual stream's layout
-(`spmd.constrain`). On plain tensors the `spmd` calls do nothing.
+out by `launch/shardings.py` (under `implicit_replication()`): each
+layer's weights enter its body through `spmd.gather_weights` (FSDP: the
+data-axis shards gathered, the "model" shards kept; so too the embedding
+table and the head), DTensor propagates the layouts, and
+`models/spmd.py` takes over where it cannot (attention, the scan and the
+embedding lookup on local shards, decode over a length-sharded cache,
+the MoE dispatch) and pins the residual stream's layout
+(`spmd.constrain`). On plain tensors
+the `spmd` calls do nothing.
 """
 from __future__ import annotations
 
@@ -319,8 +323,9 @@ def _check_forward(cfg, remat: str, enc_embeds) -> None:
 def _head(params, cfg, x: torch.Tensor) -> torch.Tensor:
     """The logits; on DTensors their gradient keeps the logits' layout
     (the vocab over "model"), which the softmax would otherwise gather."""
-    x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    out_t = params["embed"].T if cfg.tie_embeddings else params["out"]
+    x = L.rms_norm(x, spmd.gather_weights(params["final_ln"]), cfg.norm_eps)
+    out_t = spmd.gather_weights(params["embed"]).T if cfg.tie_embeddings \
+        else spmd.gather_weights(params["out"])
     return spmd.pin_grad(L.logits_head(out_t, x))
 
 
@@ -348,12 +353,13 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
     per layer, and for the hybrid family per group, as in JAX."""
     _check_forward(cfg, remat, enc_embeds)
     _no_hiddens(cfg, return_hiddens)
-    x = L.embed(params["embed"], tokens)
+    x = spmd.lookup(L.embed, spmd.gather_weights(params["embed"]), tokens)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     x = spmd.constrain(x)
     if cfg.family == "ssm":
         def ssm_body(h, lp):
+            lp = spmd.gather_weights(lp)
             y, _ = ssm_lib.mamba1_forward(
                 lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
             return spmd.constrain(h + y)
@@ -379,6 +385,7 @@ def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
                                   attn_impl=attn_impl, remat=remat)
 
     def layer(lp, h, enc):
+        lp = spmd.gather_weights(lp)
         return attn_ffn_block(
             lp, h, cfg, positions, attn_impl=attn_impl,
             enc_kv=None if enc is None else _enc_kv(lp, enc, cfg))
@@ -428,12 +435,13 @@ def encoder_forward(params: dict, cfg, enc_embeds: torch.Tensor, *,
     x = enc_embeds.to(getattr(torch, cfg.dtype))
 
     def layer(lp, h):
-        return attn_ffn_block(lp, h, cfg, positions, causal=False,
+        return attn_ffn_block(spmd.gather_weights(lp), h, cfg, positions,
+                              causal=False,
                               attn_impl=attn_impl)[0]
     body = _maybe_remat(layer, remat)
     for lp in params["enc_layers"]:
         x = body(lp, x)
-    return L.rms_norm(x, params["enc_ln"], cfg.norm_eps)
+    return L.rms_norm(x, spmd.gather_weights(params["enc_ln"]), cfg.norm_eps)
 
 
 def _hybrid_forward(params: dict, cfg, x: torch.Tensor, positions,
@@ -443,11 +451,12 @@ def _hybrid_forward(params: dict, cfg, x: torch.Tensor, positions,
     `remat` applies to a group as a whole."""
     def group_body(h, group):
         for lp in group:
+            lp = spmd.gather_weights(lp)
             y, _ = ssm_lib.mamba2_forward(
                 lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
             h = spmd.constrain(h + y)
-        return attn_ffn_block(params["shared_attn"], h, cfg, positions,
-                              attn_impl=attn_impl)[0]
+        return attn_ffn_block(spmd.gather_weights(params["shared_attn"]), h,
+                              cfg, positions, attn_impl=attn_impl)[0]
     group_body = _maybe_remat(group_body, remat)
     for group in params["mamba"]:
         x = group_body(x, group)
@@ -552,11 +561,13 @@ def lm_decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor, *,
     stream [L, B, 1, D]."""
     _check_ported(cfg)
     _no_hiddens(cfg, return_hiddens)
-    x = L.embed(params["embed"], tokens)[:, None, :]
+    x = spmd.lookup(L.embed, spmd.gather_weights(params["embed"]),
+                    tokens)[:, None, :]
     pos = state["pos"]
     if cfg.family == "ssm":
         ssm = state["ssm"]
         for i, lp in enumerate(params["layers"]):
+            lp = spmd.gather_weights(lp)
             y, new = ssm_lib.mamba1_step(
                 lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
                 {k: v[i] for k, v in ssm.items()})
@@ -567,20 +578,23 @@ def lm_decode_step(params: dict, cfg, state: dict, tokens: torch.Tensor, *,
     kv = state["kv"]
     if cfg.family == "hybrid":
         ssm = state["ssm"]
+        shared = spmd.gather_weights(params["shared_attn"])
         for g, group in enumerate(params["mamba"]):
             for i, lp in enumerate(group):
+                lp = spmd.gather_weights(lp)
                 y, new = ssm_lib.mamba2_step(
                     lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
                     {k: v[g, i] for k, v in ssm.items()})
                 for k, v in ssm.items():
                     v[g, i] = new[k]
                 x = x + y
-            x = attn_block_decode(params["shared_attn"], x, cfg,
+            x = attn_block_decode(shared, x, cfg,
                                   {n: t[g] for n, t in kv.items()}, pos)
         return _head(params, cfg, x)[:, 0], dict(state, pos=pos + 1)
     hs = []
     enc_out = state.get("enc_out")
     for i, lp in enumerate(params["layers"]):
+        lp = spmd.gather_weights(lp)
         x = attn_block_decode(lp, x, cfg, {n: t[i] for n, t in kv.items()},
                               pos, None if enc_out is None
                               else _enc_kv(lp, enc_out, cfg))

@@ -46,8 +46,12 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params: Any) -> Dict:
+    """Zero fp32 m and v in each param's layout (a DTensor param's m and v
+    are DTensors of its placements, the sharding rules' `opt_shardings`),
+    and step 0."""
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     device = tree_lib.leaves(params)[0].device
     return {"m": tree_lib.map_leaves(zeros32, params),
             "v": tree_lib.map_leaves(zeros32, params),

@@ -61,11 +61,10 @@ class Trainer:
         self.straggler_events = []
         self.loss = loss_fn or (lambda p, b: model.loss(p, b)[0])
 
-    def train_step(self, params: Any, opt_state: Dict, batch: Dict):
-        """One step; params and opt_state are updated in place. Returns
-        (params, opt_state, metrics {"loss", "lr", "grad_norm"} as 0-d
-        tensors). The param leaves require grad during the loss and its
-        gradient only."""
+    def loss_and_grads(self, params: Any, batch: Dict):
+        """(loss, gradient tree of params' structure): the first half of
+        `train_step`. The param leaves require grad during the loss and
+        its gradient only."""
         leaves = tree_lib.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -76,10 +75,16 @@ class Trainer:
         finally:
             for p in leaves:
                 p.requires_grad_(False)
+        return lval.detach(), tree_lib.unflatten(params, list(grads))
+
+    def train_step(self, params: Any, opt_state: Dict, batch: Dict):
+        """One step; params and opt_state are updated in place. Returns
+        (params, opt_state, metrics {"loss", "lr", "grad_norm"} as 0-d
+        tensors)."""
+        lval, grads = self.loss_and_grads(params, batch)
         params, opt_state, metrics = adamw.adamw_update(
-            self.opt_cfg, params, tree_lib.unflatten(params, list(grads)),
-            opt_state)
-        metrics["loss"] = lval.detach()
+            self.opt_cfg, params, grads, opt_state)
+        metrics["loss"] = lval
         return params, opt_state, metrics
 
     # -- preemption ----------------------------------------------------------
