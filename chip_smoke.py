@@ -4250,6 +4250,12 @@ DIST_TRAIN_STEPS = 2    # --dist-only (d): timed steps, after a warm-up
 # at HYBRID_CUT layers each gradient leaf within 1e-4 of its leaf's largest
 # magnitude, the updated params within 1e-4 of the largest |param|
 DIST_LOSS_TOL, DIST_NORM_TOL, DIST_FP32_TOL = 1e-2, 2e-2, 1e-4
+# --dist-only (e): mixtral-8x7b prefilled whole on the (2, 2) mesh; (f):
+# olmoe-1b-7b trained whole there, its bf16 first step held against one
+# card's at MOE_REF_CUT layers (the whole state, ~83 GB, does not fit one
+# card) and an fp32 step at MOE_FP32_CUT layers, both at full width
+MOE_ARCH, MOE_TRAIN_ARCH = "mixtral-8x7b", "olmoe-1b-7b"
+MOE_REF_CUT, MOE_FP32_CUT = 4, 2
 FLASH_BUILD = ("flash_attention", "flash_attention_wgmma")
 # compress_int8 on the card against the CPU: a size that is not a multiple
 # of the 256-element block, several blocks, and a block of zeros
@@ -4572,15 +4578,16 @@ def dist_path(dev):
 
 
 def _collectives(fn, mesh):
-    """fn()'s result and the collectives DTensor issued in it on this
-    rank (`dryrun.cost_mode`): {"ops": n, "bytes": {kind: operand bytes},
-    "by_axis": {"<kind> over <mesh axis>": {"ops", "bytes"}}}."""
+    """fn()'s result and the collectives DTensor and the port issued in it
+    on this rank (`dryrun.cost_mode`): {"ops": n, "bytes": {kind: operand
+    bytes}, "by_axis": {"<kind> over <mesh axis>": {"ops", "bytes"}},
+    "shapes": [(kind, operand shape, mesh axis)]}."""
     from repro_torch.launch import dryrun
     with dryrun.counting(dryrun.cost_mode(mesh)) as cost:
         out = fn()
     return out, dict(ops=cost.collective_ops, bytes={
         k: v for k, v in cost.collective_kinds.items() if v},
-        by_axis=cost.collective_axes)
+        by_axis=cost.collective_axes, shapes=cost.collective_shapes)
 
 
 def _over(coll, kind: str, axes) -> int:
@@ -4695,6 +4702,7 @@ def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
             raise AssertionError("80-layer prefill logits are not finite")
         _, coll_prefill = _collectives(lambda: _sharded_prefill(
             model, params, batch, pos, mesh), mesh)
+        coll_prefill.pop("shapes")
         fsdp = dict(all_reduce_over_data=_over(coll_prefill, "all-reduce",
                                                data_axes(mesh)),
                     all_gather_over_data=_over(coll_prefill, "all-gather",
@@ -4731,6 +4739,7 @@ def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
                 else:
                     (lg, st), coll_decode = _collectives(
                         lambda: model.decode_step(params, st, tok), mesh)
+                    coll_decode.pop("shapes")
                 sync()
                 steps.append((time.perf_counter() - t1) * 1e3)
                 ok = torch.isfinite(lg.to_local()).all().float()
@@ -4752,6 +4761,243 @@ def dist_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
         collectives_prefill=coll_prefill, fsdp_by_rank=every,
         collectives_decode_step=coll_decode)
     log(f"--dist-only (c) {VLM_ARCH} {cfg.num_layers} layers {cfg.dtype}, "
+        f"{n_params / 1e9:.2f} B params, {local_bytes / 2 ** 30:.2f} GiB a "
+        f"card: {json.dumps(res, default=str)}")
+    return res
+
+
+def _counts_by_layer(aux) -> list:
+    """The per-layer expert counts of a forward's aux, whole."""
+    c = aux["expert_counts_per_layer"]
+    return (c.full_tensor() if hasattr(c, "full_tensor") else c).tolist()
+
+
+def dist_moe_small(mesh, dev, dtype: str, reduced=False, b=PREFILL_B,
+                   s=PREFILL_S) -> dict:
+    """(e) at DIST_CUT layers and full width (the reduced config with
+    `reduced`) in `dtype` (TF32 off), attn_impl "flash": the prefill of
+    DTensor params and tokens laid out by the rules against the plain
+    prefill of the same weights on this card. fp32: every layer's expert
+    counts equal, the logits within DIST_FP32_TOL of the largest |logit|;
+    bf16: every routing flip of the first layer (a token whose top-k
+    experts differ; its router input differs from the plain one by the
+    rounding of the attention's TP sum alone) explained by that rounding:
+    the plain path's gap between its k-th and (k+1)-th gates no larger
+    than twice the token's largest gate difference between the two
+    paths; the later layers' flips and count moves and the worst logit
+    error printed, without a gate (the TP sums round apart in bf16, and a
+    flip moves a token's output by far more than rounding)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from torch.distributed.tensor.experimental import implicit_replication
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(MOE_ARCH, reduced=True),
+                              dtype=dtype) if reduced else \
+        _cut(MOE_ARCH, layers=DIST_CUT, dtype=dtype)
+    model = Model(cfg, attn_impl="flash", device=str(dev))
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = _prompts(cfg, dev, seed=0, b=b, s=s)
+    rec, drec = [], []
+    with torch.no_grad():
+        with _routing(record=rec):
+            plain, aux = T.lm_forward(params, cfg, batch["tokens"],
+                                      attn_impl="flash")
+        dparams = sh.distribute(params, mesh, sh.param_shardings(
+            mesh, params), src_data_rank=None)
+        db = sh.distribute(batch, mesh, sh.batch_shardings(mesh, batch),
+                           src_data_rank=None)
+        with implicit_replication(), _routing(record=drec):
+            dlogits, daux = T.lm_forward(dparams, cfg, db["tokens"],
+                                         attn_impl="flash")
+        sharded = dlogits.full_tensor()
+    counts, dcounts = _counts_by_layer(aux), _counts_by_layer(daux)
+    moves = [sum(abs(x - y) for x, y in zip(a, c)) // 2
+             for a, c in zip(counts, dcounts)]
+    # each layer's flips among this rank's tokens (its batch shard: the
+    # rows of the plain routing its data index holds), with the plain
+    # path's gate gaps
+    k = cfg.experts_per_token
+    rows = b * s // mesh.size(0)
+    first = mesh.get_local_rank("data") * rows
+    flips = []
+    for (g, _, e), (dg, _, de) in zip(rec, drec):
+        g, e = g[first:first + rows], e[first:first + rows]
+        flip = (e.sort(-1).values != de.sort(-1).values).any(-1)
+        top_g = g.sort(-1, descending=True).values
+        moved = (dg - g).abs().max(-1).values
+        flips.append(list(zip((top_g[:, k - 1] - top_g[:, k])[flip].tolist(),
+                              moved[flip].tolist())))
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, flips)
+    # the model ranks of one data index hold the same tokens
+    flips = [sum((f[layer] for r, f in enumerate(every)
+                  if r % mesh.size(1) == 0), [])
+             for layer in range(cfg.num_layers)]
+    err = (sharded.float() - plain.float()).abs().max().item()
+    top = plain.float().abs().max().item()
+    res = dict(arch=MOE_ARCH, layers=cfg.num_layers, dtype=dtype, batch=b,
+               seq_len=s, mesh=list(mesh.shape), max_err=err,
+               max_abs_logit=top, count_moves_per_layer=moves,
+               counts_equal=[a == c for a, c in zip(counts, dcounts)],
+               flips_per_layer=[len(f) for f in flips],
+               first_layer_flips_gap_and_gate_moved=sorted(flips[0]))
+    del sharded, plain, dlogits, dparams, params
+    log(f"--dist-only (e) {MOE_ARCH} {cfg.num_layers} layers {dtype} on a "
+        f"{tuple(mesh.shape)} mesh vs one card: {res}")
+    if dtype == "float32" and not (all(res["counts_equal"])
+                                   and err <= DIST_FP32_TOL * top):
+        raise AssertionError(f"fp32 sharded MoE prefill off the plain "
+                             f"one: {res}")
+    if dtype != "float32" and any(gap > 2 * moved
+                                  for gap, moved in flips[0]):
+        raise AssertionError(f"bf16 sharded MoE prefill: a first-layer "
+                             f"flip its gates' rounding cannot explain: "
+                             f"{res}")
+    return res
+
+
+def dist_moe_full(mesh, dev, reduced=False, b=PREFILL_B, s=PREFILL_S):
+    """--dist-only (e): mixtral-8x7b at all its layers, bf16, on the (2, 2)
+    mesh with FSDP x TP and the MoE dispatch partitioned (each rank routes
+    its own tokens, gathers only the routing over "data", exchanges slot
+    rows by all-to-all): weights drawn leaf by leaf (seed 0, each rank its
+    shard), a b x s prefill with attn_impl "flash" (one launch a layer on
+    every card, on its batch and head shard, on the tensor cores), timed
+    after a warm-up, finite logits; its collectives by kind and axis,
+    gated on every card: no all-reduce over the data axes, and all-gathers
+    over "data" within DIST_GATHER_TOL of the weights' local bytes
+    (`dryrun.gathered_bytes_analytic`) plus the routing's (the gates
+    [T/2, E] fp32 and ids [T/2, k] int32 of each layer): no token's
+    hidden vector and no expert row gathered; one more
+    prefill profiled on every card; DIST_DECODE decode steps from an
+    empty cache, timed; each card's peak memory."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    cfg = get_config(MOE_ARCH, reduced=reduced)
+    cuda = dev.type == "cuda"
+    model = Model(cfg, attn_impl="flash", device=str(dev))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        place=sh.param_placer(mesh))
+    if cuda:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(params))
+    local_bytes = sum(p.to_local().numel() * p.element_size()
+                      for p in _leaves(params))
+    batch = _prompts(cfg, dev, seed=0, b=b, s=s)
+    db = sh.distribute(batch, mesh, sh.batch_shardings(mesh, batch),
+                       src_data_rank=None)
+
+    def prefill():
+        with implicit_replication():
+            return T.lm_forward(params, cfg, db["tokens"],
+                                attn_impl="flash")[0]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+    walls = []
+    with torch.no_grad():
+        for _ in range(2):
+            sync()
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            logits = prefill()
+            sync()
+            walls.append((time.perf_counter() - t1) * 1e3)
+            launches = dict(ops.launches)
+            _only(launches, {"flash_attention": cfg.num_layers
+                             if cuda else 0})
+            if cuda and ops.flash_variants[ops.TENSOR_CORES] != \
+                    cfg.num_layers:
+                raise AssertionError(f"flash variants {ops.flash_variants}"
+                                     f": want {cfg.num_layers} on "
+                                     f"{ops.TENSOR_CORES}")
+            finite = torch.isfinite(logits.to_local()).all().float()
+            del logits
+        dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+        if finite.item() != 1.0:
+            raise AssertionError("MoE prefill logits are not finite")
+        _, coll = _collectives(prefill, mesh)
+        t_local = b * s // mesh.size(0)
+        routing = cfg.num_layers * t_local * (cfg.num_experts
+                                              + cfg.experts_per_token) * 4
+        gathered = _over(coll, "all-gather", ("data",))
+        fsdp = dict(all_reduce_over_data=_over(coll, "all-reduce",
+                                               data_axes(mesh)),
+                    all_gather_over_data=gathered,
+                    weights_gathered=dryrun.gathered_bytes_analytic(
+                        params, mesh),
+                    routing_bytes=routing,
+                    all_to_all_over_data=_over(coll, "all-to-all",
+                                               data_axes(mesh)),
+                    largest_all_to_all_rows=max(
+                        [shape[0] for kind, shape, _ in coll.pop("shapes")
+                         if kind == "all-to-all"], default=0))
+        fsdp["ok"] = fsdp["all_reduce_over_data"] == 0 and abs(
+            gathered - fsdp["weights_gathered"] - routing) <= \
+            DIST_GATHER_TOL * fsdp["weights_gathered"]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, fsdp)
+        if not all(f["ok"] for f in every):
+            raise AssertionError(f"MoE prefill collectives: {every}")
+        profiles = [None] * dist.get_world_size()
+        if cuda:
+            dist.all_gather_object(profiles, _rank_profile(prefill))
+        toks = batch["tokens"][:, :DIST_DECODE + 1]
+        steps = []
+        st = model.init_decode_state(b, s + 8)
+        st = sh.distribute(st, mesh, sh.decode_state_shardings(
+            mesh, st, cfg), src_data_rank=None)
+        with implicit_replication():
+            for t in range(DIST_DECODE + 1):
+                tok = sh.distribute_leaf(toks[:, t].contiguous(), mesh,
+                                         sh.P("data"), src_data_rank=None)
+                sync()
+                t1 = time.perf_counter()
+                if t < DIST_DECODE:
+                    lg, st = model.decode_step(params, st, tok)
+                else:
+                    (lg, st), coll_decode = _collectives(
+                        lambda: model.decode_step(params, st, tok), mesh)
+                    coll_decode.pop("shapes")
+                sync()
+                steps.append((time.perf_counter() - t1) * 1e3)
+                ok = torch.isfinite(lg.to_local()).all().float()
+                dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+                if ok.item() != 1.0:
+                    raise AssertionError("decode logits are not finite")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    res = dict(
+        arch=MOE_ARCH, layers=cfg.num_layers, dtype=cfg.dtype,
+        mesh=list(mesh.shape), params=n_params,
+        weight_bytes_per_card=local_bytes, init_s=init_s, batch=b,
+        seq_len=s, ms_per_prefill=walls[-1], prefill_runs_ms=walls,
+        tokens_per_s=b * s / (walls[-1] / 1e3), launches=launches,
+        ms_per_decode_step=sum(steps[1:DIST_DECODE]) / (DIST_DECODE - 1),
+        decode_steps_ms=steps[:DIST_DECODE], decode_cache_slots=s + 8,
+        peak_memory_bytes=peaks, prefill_profile_by_rank=profiles,
+        collectives_prefill=coll, fsdp_by_rank=every,
+        collectives_decode_step=coll_decode)
+    log(f"--dist-only (e) {MOE_ARCH} {cfg.num_layers} layers {cfg.dtype}, "
         f"{n_params / 1e9:.2f} B params, {local_bytes / 2 ** 30:.2f} GiB a "
         f"card: {json.dumps(res, default=str)}")
     return res
@@ -4783,9 +5029,11 @@ def _sharded_batch(tr, step: int, mesh):
                          src_data_rank=None)
 
 
-def dist_train_fp32(mesh, dev, arch, reduced, b, s, ckpt_dir) -> dict:
-    """(d) in fp32 (TF32 off) at HYBRID_CUT layers (two groups; the
-    reduced config with `reduced`): one `Trainer` step's gradients
+def dist_train_fp32(mesh, dev, arch, reduced, b, s, ckpt_dir,
+                    layers=HYBRID_CUT) -> dict:
+    """(d) and (f) in fp32 (TF32 off) at `layers` layers of full width
+    (zamba2's HYBRID_CUT: two groups; the reduced config with `reduced`):
+    one `Trainer` step's gradients
     (`loss_and_grads`) and AdamW update of the params laid out by the
     sharding rules against the same step of the plain params on this
     card: each gradient leaf within DIST_FP32_TOL of its leaf's largest
@@ -4806,7 +5054,7 @@ def dist_train_fp32(mesh, dev, arch, reduced, b, s, ckpt_dir) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch, reduced=True),
                               dtype="float32") if reduced else \
-        _cut(arch, layers=HYBRID_CUT, dtype="float32")
+        _cut(arch, layers=layers, dtype="float32")
     model = Model(cfg, attn_impl="blockwise", remat="full", device=str(dev))
     tr = _trainer(model, b, s, 1, ckpt_dir)
     plain = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -4844,7 +5092,7 @@ def dist_train_fp32(mesh, dev, arch, reduced, b, s, ckpt_dir) -> dict:
                param_worst_rel=p_rel, param_leaf_worst_rel=p_leaf_rel,
                param_worst_leaf=p_leaf, tolerance=DIST_FP32_TOL,
                leaves=len(names), misplaced_grads=misplaced)
-    log(f"--dist-only (d) fp32 {arch} {cfg.num_layers} layers, B={b} "
+    log(f"--dist-only fp32 {arch} {cfg.num_layers} layers, B={b} "
         f"S={s}: {res}")
     if misplaced:
         raise AssertionError(f"gradients not laid out as AdamW's state: "
@@ -4854,24 +5102,62 @@ def dist_train_fp32(mesh, dev, arch, reduced, b, s, ckpt_dir) -> dict:
     return res
 
 
-def dist_train(mesh, dev, reduced=False) -> dict:
-    """--dist-only (d): zamba2-2.7b at full size (the reduced config with
-    `reduced`), bf16, remat "full", attn_impl "blockwise", B=TRAIN_B x
-    S=TRAIN_S, trained on the (2, 2) mesh: params drawn by `param_placer`
-    (seed 0), AdamW's state by `adamw_init` (its placements
-    `opt_shardings`'), each batch by `batch_shardings`; one warm-up step
-    (`Trainer.loss_and_grads`, then `adamw_update`: `train_step`'s two
-    halves) with its collectives counted by kind and mesh axis and every
-    gradient laid out as its AdamW state (the weights' gradients
-    reduce-scattered over "data", no all-reduce of whole gradients), then
-    DIST_TRAIN_STEPS timed `Trainer.train_step`s and one profiled on
-    every card; on the card exactly 90 mamba_scan and 45 mamba_scan_bwd
-    launches a step on every card (each on its batch and head shard) and
-    nothing else. Then, the sharded state freed, rank 0 alone runs the
-    warm-up step from the same seed on plain tensors (the others wait):
-    its loss within DIST_LOSS_TOL (relative) and global gradient norm
-    within DIST_NORM_TOL of the sharded step's. Last
-    `dist_train_fp32`."""
+def _logit_gathers(shapes, b_local: int, s: int, v_local: int) -> list:
+    """The all-gathers in `shapes` (`_collectives`) of a card's logits, an
+    operand of [b_local, s, v_local]'s size: the gather the vocab-parallel
+    loss avoids."""
+    return [(kind, shape, axis) for kind, shape, axis in shapes
+            if kind == "all-gather"
+            and int(np.prod(shape)) == b_local * s * v_local]
+
+
+def _first_step(cfg, mesh, dev, b, s, ckpt_dir) -> dict:
+    """The first `Trainer` step (remat "full") of `cfg` from seed 0: on
+    DTensors laid out by the rules with `mesh`, else on this card's plain
+    tensors; its loss and global gradient norm."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    model = Model(cfg, attn_impl="blockwise", remat="full", device=str(dev))
+    tr = _trainer(model, b, s, 1, ckpt_dir)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if mesh is None:
+        one = model.init(gen)
+        _, _, m = tr.train_step(one, adamw.adamw_init(one),
+                                tr.data.batch_at(0))
+    else:
+        one = model.init(gen, place=sh.param_placer(mesh))
+        with implicit_replication():
+            _, _, m = tr.train_step(one, adamw.adamw_init(one),
+                                    _sharded_batch(tr, 0, mesh))
+    return dict(layers=cfg.num_layers, loss=_item(m["loss"]),
+                grad_norm=_item(m["grad_norm"]))
+
+
+def dist_train(mesh, dev, reduced=False, arch="zamba2-2.7b",
+               ref_layers=None, fp32_layers=HYBRID_CUT) -> dict:
+    """--dist-only (d) (zamba2-2.7b) and (f) (`arch` olmoe-1b-7b): `arch`
+    at full size (the reduced config with `reduced`), bf16, remat "full",
+    attn_impl "blockwise", B=TRAIN_B x S=TRAIN_S, trained on the (2, 2)
+    mesh: params drawn by `param_placer` (seed 0), AdamW's state by
+    `adamw_init` (its placements `opt_shardings`'), each batch by
+    `batch_shardings`; one warm-up step (`Trainer.loss_and_grads`, then
+    `adamw_update`: `train_step`'s two halves) with its collectives counted
+    by kind and mesh axis, none of them an all-gather of a card's logits
+    (the loss works on each rank's vocab shard), and every gradient
+    laid out as its AdamW state (the weights' gradients reduce-scattered
+    over "data", no all-reduce of whole gradients), then DIST_TRAIN_STEPS
+    timed `Trainer.train_step`s and one profiled on every card; on the
+    card exactly 2 mamba_scan and 1 mamba_scan_bwd launches a mamba block
+    a step on every card (each on its batch and head shard) and nothing
+    else. Then, the sharded state freed, the first step from the same seed
+    on one card's plain tensors (rank 0; the others wait): its loss within
+    DIST_LOSS_TOL (relative) and global gradient norm within DIST_NORM_TOL
+    of the sharded step's; at `ref_layers` layers for both where the whole
+    state does not fit one card. Last `dist_train_fp32` at `fp32_layers`
+    layers."""
     import gc
     import shutil
     import tempfile
@@ -4885,7 +5171,6 @@ def dist_train(mesh, dev, reduced=False) -> dict:
     from repro_torch.launch.mesh import data_axes
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
-    arch = "zamba2-2.7b"
     cuda = dev.type == "cuda"
     cfg = get_config(arch, reduced=reduced)
     b, s = (2, 64) if reduced else (TRAIN_B, TRAIN_S)
@@ -4925,7 +5210,8 @@ def dist_train(mesh, dev, reduced=False) -> dict:
                         m = adamw.adamw_update(tr.opt_cfg, params, grads,
                                                opt)[2]
                         return loss, grads, m
-                    (loss, grads, metrics), coll = _collectives(warm, mesh)
+                    (loss, grads, metrics), coll = _collectives(warm,
+                                                                mesh)
                     misplaced = _layout_matches(mesh, params, grads)
                     del grads
                     first = dict(loss=_item(loss),
@@ -4940,6 +5226,12 @@ def dist_train(mesh, dev, reduced=False) -> dict:
         if misplaced:
             raise AssertionError(f"gradients not laid out as AdamW's "
                                  f"state: {misplaced[:5]}")
+        shapes = coll.pop("shapes")
+        logit_gathers = _logit_gathers(shapes, b // mesh.size(0), s,
+                                       -(-cfg.vocab_size // mesh.size(1)))
+        if logit_gathers:
+            raise AssertionError(f"the step gathers the logits: "
+                                 f"{logit_gathers}")
         gather = dryrun.gathered_bytes_analytic(params, mesh)
         profiles = [None] * dist.get_world_size()
         if cuda:
@@ -4956,18 +5248,22 @@ def dist_train(mesh, dev, reduced=False) -> dict:
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
+        ref_cfg = cfg if ref_layers is None or reduced else \
+            _cut(arch, layers=ref_layers)
+        if ref_layers is not None:
+            # the whole state does not fit one card: the sharded side of
+            # the comparison at ref_layers layers too
+            first = _first_step(ref_cfg, mesh, dev, b, s, ckpt_dir)
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
         ref = [None]
         if dist.get_rank() == 0:
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
-            one = model.init(torch.Generator(device=dev).manual_seed(0))
-            _, _, m1 = tr.train_step(one, adamw.adamw_init(one),
-                                     tr.data.batch_at(0))
-            ref = [dict(loss=m1["loss"].item(),
-                        grad_norm=m1["grad_norm"].item(),
-                        peak_memory_bytes=torch.cuda.max_memory_allocated()
-                        if cuda else 0)]
-            del one, m1
+            ref = [_first_step(ref_cfg, None, dev, b, s, ckpt_dir)]
+            ref[0]["peak_memory_bytes"] = \
+                torch.cuda.max_memory_allocated() if cuda else 0
             gc.collect()
             if cuda:
                 torch.cuda.empty_cache()
@@ -4984,11 +5280,15 @@ def dist_train(mesh, dev, reduced=False) -> dict:
         profile_by_rank=profiles, collectives_step=coll,
         weights_gathered_once=gather,
         all_reduce_over_data=_over(coll, "all-reduce", data_axes(mesh)),
+        largest_all_gather=max([(int(np.prod(shape)), shape, axis)
+                                for kind, shape, axis in shapes
+                                if kind == "all-gather"], default=None),
         first_step=first, one_card=ref,
         loss_rel_err=abs(first["loss"] - ref["loss"]) / abs(ref["loss"]),
         grad_norm_rel_err=abs(first["grad_norm"] - ref["grad_norm"])
         / ref["grad_norm"])
-    log(f"--dist-only (d) {arch} {cfg.num_layers} layers {cfg.dtype} "
+    part = "(d)" if ref_layers is None else "(f)"
+    log(f"--dist-only {part} {arch} {cfg.num_layers} layers {cfg.dtype} "
         f"trained on a {tuple(mesh.shape)} mesh: "
         f"{json.dumps(res, default=str)}")
     if not (res["loss_rel_err"] <= DIST_LOSS_TOL
@@ -4998,7 +5298,7 @@ def dist_train(mesh, dev, reduced=False) -> dict:
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_train_")
     try:
         res["fp32"] = dist_train_fp32(mesh, dev, arch, reduced, b, s,
-                                      ckpt_dir)
+                                      ckpt_dir, layers=fp32_layers)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return res
@@ -5010,11 +5310,15 @@ def dist_only(device: str) -> int:
     environment): (a) `compression_check` over the 4-rank data axis of a
     (4, 1) mesh, (b) `dist_vlm_small` and `dist_flash_small` (fp32, bf16)
     on the (2, 2) mesh, (c) `dist_full` (qwen2-vl-72b's prefill and
-    decode), (d) `dist_train` (zamba2-2.7b's train step); every weight
-    gathered over "data" where its layer starts (FSDP x TP). With device
-    "cpu" (a rehearsal: gloo, the reduced configs, B=2 x S=64) the same
-    on the CPU. Only rank 0 prints; the kernels built are those (b)-(d)
-    run: flash_attention and mamba_scan (with its backward)."""
+    decode), (d) `dist_train` (zamba2-2.7b's train step), (e)
+    `dist_moe_small` (fp32, bf16) and `dist_moe_full` (mixtral-8x7b's
+    prefill and decode), (f) `dist_train` of olmoe-1b-7b; every weight
+    gathered over "data" where its layer starts (FSDP x TP), the loss on
+    each rank's vocab shard, the MoE dispatch partitioned. With device
+    "cpu" (a rehearsal:
+    gloo, the reduced configs, B=2 x S=64) the same on the CPU. Only rank
+    0 prints; the kernels built are those (b)-(f) run: flash_attention
+    and mamba_scan (with its backward)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -5038,40 +5342,54 @@ def dist_only(device: str) -> int:
                 f"{torch.cuda.device_count()}; nvidia-smi: {nvidia_smi()}; "
                 f"torch {torch.__version__}, CUDA {torch.version.cuda}")
         kind = "cpu" if cpu else "cuda"
-        out = dict(compression=compression_check(
-            make_host_mesh(1, kind), dev, world))
+        out, seconds = {}, {}
+
+        def done(part, t):
+            seconds[part] = time.perf_counter() - t
+            if not cpu:
+                out[f"cards_after_{part}"] = cards()
+                log(f"cards after ({part}): {out[f'cards_after_{part}']}")
+                torch.cuda.empty_cache()
+            return time.perf_counter()
+        t = time.perf_counter()
+        out["compression"] = compression_check(make_host_mesh(1, kind),
+                                               dev, world)
+        t = done("a", t)
         mesh = make_host_mesh(2, kind)
         kw = dict(b=2, s=64, reduced=True) if cpu else {}
-        out["small"], params = dist_vlm_small(mesh, dev, exact=False, **kw)
-        del params
         if not cpu:
-            torch.cuda.empty_cache()
             if dist.get_rank() == 0:      # the kernels of this path
                 from repro_torch.kernels import build
                 build.build_all(FLASH_BUILD + ("mamba_scan",))
             dist.barrier()
+        out["small"], params = dist_vlm_small(mesh, dev, exact=False, **kw)
+        del params
         out["flash_fp32"] = dist_flash_small(mesh, dev, "float32", 1e-4,
                                              **kw)
         out["flash_bf16"] = dist_flash_small(mesh, dev, "bfloat16",
                                              DIST_BF16_TOL, **kw)
-        if not cpu:
-            torch.cuda.empty_cache()
+        t = done("b", t)
         out["full"] = dist_full(mesh, dev, **kw)
-        if not cpu:
-            out["cards_after_c"] = cards()
-            log(f"cards after (c): {out['cards_after_c']}")
-            torch.cuda.empty_cache()
+        t = done("c", t)
         out["train"] = dist_train(mesh, dev, reduced=cpu)
-        if not cpu:
-            out["cards_after_d"] = cards()
-            log(f"cards after (d): {out['cards_after_d']}")
+        t = done("d", t)
+        out["moe_fp32"] = dist_moe_small(mesh, dev, "float32", **kw)
+        out["moe_bf16"] = dist_moe_small(mesh, dev, "bfloat16", **kw)
+        out["moe_full"] = dist_moe_full(mesh, dev, **kw)
+        t = done("e", t)
+        out["moe_train"] = dist_train(
+            mesh, dev, reduced=cpu, arch=MOE_TRAIN_ARCH,
+            ref_layers=MOE_REF_CUT, fp32_layers=MOE_FP32_CUT)
+        done("f", t)
         out["seconds"] = time.perf_counter() - t0
+        out["seconds_by_part"] = seconds
         if dist.get_rank() == 0:
             out_dir = ROOT / "build"
             out_dir.mkdir(exist_ok=True)
             (out_dir / "chip_smoke_dist.json").write_text(
                 json.dumps(out, indent=1, default=str))
-        log(f"total {out['seconds']:.1f} s (--dist-only: no result line)")
+        log(f"parts {seconds}; total {out['seconds']:.1f} s (--dist-only: "
+            "no result line)")
     finally:
         dist.destroy_process_group()
     return 0
@@ -5110,8 +5428,10 @@ def main(argv=None) -> int:
                       help="under `python3 -m torch.distributed.run "
                       "--standalone --nproc-per-node 4`: the distributed "
                       "layer on four cards (compressed all-reduce, a (2, "
-                      "2) mesh, qwen2-vl-72b at all 80 layers); builds "
-                      "flash_attention only, no result line")
+                      "2) mesh, qwen2-vl-72b at all 80 layers, zamba2-2.7b "
+                      "trained, mixtral-8x7b at all 32 layers, olmoe-1b-7b "
+                      "trained); builds flash_attention and mamba_scan, no "
+                      "result line")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="--dist-only's device: cpu rehearses it with gloo "
                     "at the reduced config")

@@ -53,6 +53,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import heapq
 import json
 import os
 import time
@@ -65,7 +66,7 @@ from repro_torch.configs.shapes import (SHAPES, SHAPE_ORDER, ShapeSpec,
                                         applicable)
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import (POD_AXES, AbstractMesh, axis_sizes,
-                                     production_shape)
+                                     data_axes, production_shape)
 
 OUT_DIR = os.path.join("build", "dryrun")
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -103,23 +104,32 @@ def group_axes(mesh) -> Dict[str, str]:
     spans} for every dim of `mesh` and for the default group (all axes):
     what `cost_mode` labels a collective's group with."""
     import torch.distributed as dist
+    from repro_torch.models.spmd import data_group
     names = tuple(mesh.mesh_dim_names)
     out = {dist.group.WORLD.group_name: "+".join(names)}
     for i, name in enumerate(names):
         out[mesh.get_group(i).group_name] = name
+    group = data_group(mesh)[2]
+    if group is not None and group.group_name not in out:
+        # the data axes flattened (the MoE dispatch's all-to-all)
+        out[group.group_name] = "+".join(data_axes(mesh))
     return out
 
 
 def cost_mode(mesh=None):
     """A dispatch mode over the operators on local tensors: `flops`,
     `bytes_accessed`, collectives (`collective_kinds` operand bytes by
-    kind, `collective_ops`, and `collective_axes` {"<kind> over <axis>":
-    {"ops", "bytes"}}, the axis of the collective's group on `mesh`
+    kind, `collective_ops`, `collective_shapes` [(kind, first operand's
+    shape, axis)] in issue order, and `collective_axes` {"<kind> over
+    <axis>": {"ops", "bytes"}}, the axis of the collective's group on `mesh`
     (`group_axes`; without a mesh, or for a group of none of its dims, the
     group's name)) and live bytes (`live`, `peak_live`: the bytes of the
     storages that the operators created and that are still referenced,
     and the most of them at once; a storage is counted once, when an
-    operator first returns it, and freed when Python lets go of it).
+    operator first returns it, and freed when Python lets go of it;
+    `peak_largest`: the three largest storages held when the live bytes
+    last rose 1 % past the previous such point, with the operator that
+    made each, its shape and dtype).
     Operators on DTensors are let through (returning NotImplemented) so
     that DTensor runs them on the local shards, which come back through
     the mode. The operators DTensor's sharding propagation runs on
@@ -139,10 +149,14 @@ def cost_mode(mesh=None):
             self.collective_kinds = {k: 0 for k in COLLECTIVES}
             self.collective_axes: Dict[str, Dict[str, int]] = {}
             self.collective_ops = 0
+            self.collective_shapes: List[Tuple[str, list, str]] = []
             self.live = 0
             self.peak_live = 0
+            self.peak_largest = []
             self.paused = 0
             self._seen = weakref.WeakSet()
+            self._live = {}
+            self._snap = 0
 
         @contextlib.contextmanager
         def pause(self):
@@ -152,12 +166,14 @@ def cost_mode(mesh=None):
             finally:
                 self.paused -= 1
 
-        def _free(self, n: int):
+        def _free(self, key: int, n: int):
             self.live -= n
+            self._live.pop(key, None)
 
-        def track(self, out, inputs=()):
+        def track(self, out, inputs=(), op: str = ""):
             """Count the storages of `out` that are new to the mode and
-            not those of `inputs` (a view, an in-place result)."""
+            not those of `inputs` (a view, an in-place result); `op` names
+            the operator that made them."""
             old = {id(x.untyped_storage()) for x in _tensors(inputs)}
             for x in _tensors(out):
                 st = x.untyped_storage()
@@ -166,8 +182,17 @@ def cost_mode(mesh=None):
                 self._seen.add(st)
                 n = st.nbytes()
                 self.live += n
-                weakref.finalize(st, self._free, n)
-            self.peak_live = max(self.peak_live, self.live)
+                self._live[id(st)] = (n, op, list(x.shape), str(x.dtype))
+                weakref.finalize(st, self._free, id(st), n)
+            if self.live > self.peak_live:
+                self.peak_live = self.live
+                if self.live > 1.01 * self._snap:
+                    # the largest storages held at (within 1 % of) the peak
+                    self._snap = self.live
+                    self.peak_largest = [
+                        dict(bytes=n, op=o, shape=sh, dtype=dt)
+                        for n, o, sh, dt in heapq.nlargest(
+                            3, self._live.values(), key=lambda v: v[0])]
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
@@ -180,7 +205,7 @@ def cost_mode(mesh=None):
             if name == "_c10d_functional":
                 op = func.__name__
                 if not op.startswith(_FUNCOL_NOT_COLLECTIVES):
-                    self.track(out, (args, kwargs))
+                    self.track(out, (args, kwargs), op)
                     kind = next((k for key, k in _FUNCOL_KIND
                                  if key in op), None)
                     if kind is None:
@@ -192,13 +217,15 @@ def cost_mode(mesh=None):
                         (args, kwargs)))
                     self.collective_ops += 1
                     self.collective_kinds[kind] += n
+                    axis = axes_of.get(group, group)
+                    self.collective_shapes.append(
+                        (kind, list(args[0].shape), axis))
                     rec = self.collective_axes.setdefault(
-                        f"{kind} over {axes_of.get(group, group)}",
-                        {"ops": 0, "bytes": 0})
+                        f"{kind} over {axis}", {"ops": 0, "bytes": 0})
                     rec["ops"] += 1
                     rec["bytes"] += n
                 return out
-            self.track(out, (args, kwargs))
+            self.track(out, (args, kwargs), func.__name__)
             packet = func._overloadpacket
             if packet in flop_registry:
                 self.flops += int(flop_registry[packet](
@@ -454,6 +481,7 @@ def _fake_cost(model, shape, mesh, variant: str) -> Dict:
                                   cost.collective_kinds.items()},
                 collective_axes=cost.collective_axes,
                 temp_size_in_bytes=cost.peak_live,
+                peak_largest=cost.peak_largest,
                 argument_size_in_bytes=arg_bytes,
                 output_size_in_bytes=out_bytes,
                 peak_memory_in_bytes=arg_bytes + cost.peak_live)
@@ -506,6 +534,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     with fake_group(abstract.size):
         mesh = make_host_mesh(host_mesh[1], "cpu") if host_mesh else \
             make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        group_axes(mesh)      # makes any flattened group outside fake mode
         cost = _fake_cost(model, spec, mesh, variant)
     result = {
         "cell": cell, "arch": arch, "shape": shape_name,

@@ -28,14 +28,19 @@ over "model" (max, then sums), what the JAX package's SPMD program lowers
 to (a psum over the sharded length).
 
 Likewise the mamba1 scan (`scan`) and mamba2's SSD core (`batch_heads`)
-run on local batch / channel / head shards, and the embedding lookup
-(`lookup`) on each rank's rows of the vocab; the MoE dispatch, which
-ranks every slot among all slots of its expert, runs whole on every rank
-over gathered tokens (`replicated`). `constrain` (the residual stream and its
-gradient in the batch layout), `pin_grad` (a gradient back in its
-tensor's layout) and `split_heads` (GQA kv heads gathered on "model")
-keep DTensor's propagation away from dims sharded twice, which it has no
-rule for.
+run on local batch / channel / head shards, the embedding lookup
+(`lookup`) on each rank's rows of the vocab, and the loss (`vocab_nll`)
+on each rank's vocab shard of the logits, whose log-sum-exp and label
+pick take all-reduces of [B, S] over "model" and never gather the
+logits; a head whose vocab the rules leave whole on "model" (one the
+axis does not divide) is split there first (`shard_on_model`). The MoE
+block partitions its dispatch itself (`models/moe.py`: each rank routes
+its own tokens, only the routing is gathered over the data axes, and
+slot rows move by all-to-all over the data group, `data_group`).
+`constrain` (the residual stream and its gradient in the batch layout),
+`pin_grad` (a gradient back in its tensor's layout) and `split_heads`
+(GQA kv heads gathered on "model") keep DTensor's propagation away from
+dims sharded twice, which it has no rule for.
 
 The weights follow the sharding rules' scheme, FSDP over the data axes x
 TP over "model": `gather_weights`, called on a layer's parameters where
@@ -112,6 +117,48 @@ def gathered_placements(mesh, placements) -> tuple:
                  for name, p in zip(names, placements))
 
 
+def shard_on_model(x, dim: int):
+    """x with dim `dim` split over "model" where x is a DTensor whole on
+    that axis (a Replicate -> Shard redistribution: each rank keeps its
+    chunk, no collective; uneven chunks as `torch.chunk` cuts them, e.g.
+    256,206 over 16: fifteen of 16,013 and one of 16,011). For a weight
+    the sharding rules leave whole on "model" because the dim does not
+    divide it (seamless-m4t's vocab in the head): without the split every
+    model rank computes the whole product. Its gradient goes back in the
+    layout it comes in (`_Split`). Plain tensors, a mesh without a
+    "model" axis of size > 1 and a DTensor already split on "model" pass
+    as they are."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    if axis_sizes(mesh).get("model", 1) == 1:
+        return x
+    i = names.index("model")
+    if x.placements[i] != Replicate():
+        return x
+    place = list(x.placements)
+    place[i] = Shard(dim % x.dim())
+    return _Split.apply(x, tuple(place))
+
+
+class _Split(torch.autograd.Function):
+    """x redistributed to `place`, its gradient passed on in the layout it
+    comes in: the redistribution's own backward would gather a weight's
+    gradient over "model" and all-reduce it over the data axes, where the
+    gradient of a leaf gathered by `gather_weights` then needs only its
+    reduce-scatter over the data axes and a gather over "model"."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        return x.redistribute(x.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def gather_weights(tree):
     """A layer's parameter dict (or list of them, or one leaf) with every
     DTensor leaf redistributed to `gathered_placements`: each weight
@@ -137,6 +184,38 @@ def gather_weights(tree):
         # back to the leaf's placements all the same
         return pin_grad(tree)
     return tree.redistribute(tree.device_mesh, place)
+
+
+def data_group(mesh):
+    """(size, this rank's index, process group) of the data axes taken
+    together, in the order DTensor splits a dim sharded on all of them
+    (the batch): the group is None for size 1, one axis's group, or the
+    flattened group of several (the multi-pod mesh's ("pod", "data"))."""
+    axes = data_axes(mesh)
+    sizes = axis_sizes(mesh)
+    index = 0
+    for name in axes:
+        index = index * sizes[name] + mesh.get_local_rank(name)
+    big = tuple(name for name in axes if sizes[name] > 1)
+    if not big:
+        return 1, 0, None
+    group = mesh.get_group(big[0]) if len(big) == 1 else \
+        mesh[big]._flatten().get_group()
+    return _data_size(mesh), index, group
+
+
+def chunk_ranges(n: int, mesh) -> list:
+    """[(lo, hi)] of a dim of n split over every data axis of `mesh`, for
+    each index of `data_group` in order: `torch.chunk` over the first axis,
+    each chunk again over the next, as DTensor lays out a dim sharded on
+    several mesh dims (uneven and empty chunks included)."""
+    ranges = [(0, n)]
+    for name in data_axes(mesh):
+        parts = axis_sizes(mesh)[name]
+        ranges = [(lo + _chunk_first(hi - lo, parts, i),
+                   lo + _chunk_first(hi - lo, parts, i + 1))
+                  for lo, hi in ranges for i in range(parts)]
+    return ranges
 
 
 def _partial_on(mesh, place, axes) -> tuple:
@@ -192,6 +271,84 @@ def lookup(fn: Callable, table, tokens):
                                          i_place),
                      device_mesh=mesh, redistribute_inputs=True)(
         table, _as_dtensor(tokens, mesh))
+
+
+def _chunk_first(n: int, parts: int, i: int) -> int:
+    """Where chunk i of `torch.chunk`'s `parts` chunks of n starts (n if it
+    is empty): the offset of a rank's shard of a dim DTensor splits
+    unevenly."""
+    return min(i * -(-n // parts), n)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] on each rank's vocab shard: the max,
+    the sum of exp(logit - max) and the label's logit (0 on the ranks
+    whose shard does not hold it) all-reduced over `group` (None: the
+    vocab is whole here). The backward is local: (softmax - onehot) of
+    the shard, times the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, first, group):
+        v = logits.shape[-1]
+        m = logits.detach().amax(-1)
+        if group is not None:
+            m = _wait(_all_reduce(m, "max", group))
+        den = torch.exp(logits - m[..., None]).sum(-1)
+        idx = labels - first
+        inside = (idx >= 0) & (idx < v)
+        idx = idx.clamp(0, v - 1)
+        picked = torch.where(inside, torch.gather(
+            logits, -1, idx[..., None])[..., 0],
+            torch.zeros((), dtype=logits.dtype, device=logits.device))
+        if group is not None:
+            den = _wait(_all_reduce(den, "sum", group))
+            picked = _wait(_all_reduce(picked, "sum", group))
+        ctx.save_for_backward(logits, m, den, idx, inside)
+        return torch.log(den) + m - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m, den, idx, inside = ctx.saved_tensors
+        sm = torch.exp(logits - m[..., None]) / den[..., None]
+        onehot = (torch.arange(logits.shape[-1], device=logits.device)
+                  == idx[..., None]) & inside[..., None]
+        return (sm - onehot.to(sm.dtype)) * g[..., None], None, None, None
+
+
+def vocab_nll(logits, labels):
+    """-log softmax(logits)[labels] [B, S] of logits [B, S, V] and labels
+    [B, S] (int, in range). On DTensor logits each rank works on its batch
+    shard and its shard of the vocab (over "model", even or not): the
+    log-sum-exp and the label's logit take three all-reduces of [B, S]
+    over "model" (max, sum, sum), and nothing gathers the logits, as XLA
+    partitions JAX's `log_softmax` / `take_along_axis` loss over vocab-
+    sharded logits; the gradient stays a local [B, S, V/model] shard. The
+    result is laid out as the batch. Plain logits take the plain
+    `log_softmax` and `gather` (the reference's own order of operations)."""
+    if not is_dtensor(logits):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    v = logits.shape[-1]
+    split = "model" in names and logits.placements[names.index(
+        "model")] == Shard(logits.dim() - 1)
+    row_place = _layout(mesh, logits.shape[0])
+    l_place = tuple(Shard(logits.dim() - 1) if name == "model" and split
+                    else p for name, p in zip(names, row_place))
+    group = mesh.get_group("model") if split else None
+
+    def local(logits_, labels_):
+        first = _chunk_first(v, mesh.size(names.index("model")),
+                             mesh.get_local_rank("model")) if split else 0
+        return _VocabNLL.apply(logits_, labels_.long(), first, group)
+    return local_map(local, out_placements=list(row_place),
+                     in_placements=(l_place, row_place),
+                     in_grad_placements=(l_place, row_place),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, _as_dtensor(labels, mesh))
 
 
 def _as_dtensor(x, mesh):
@@ -318,6 +475,12 @@ def _all_reduce(x, op: str, group):
     counts as `_c10d_functional.all_reduce`)."""
     from torch.distributed import _functional_collectives as funcol
     return funcol.all_reduce(x, op, group)
+
+
+def _wait(x):
+    """A functional collective's result, waited for."""
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(x)
 
 
 def wrap(fn: Callable) -> Callable:
@@ -450,25 +613,3 @@ def scan(fn: Callable, a, b, h0):
                      in_placements=(a_place, a_place, h_place),
                      device_mesh=mesh, redistribute_inputs=True)(
         a, _as_dtensor(b, mesh), _as_dtensor(h0, mesh))
-
-
-def replicated(fn: Callable, *args):
-    """fn(*args) whole on every rank: each DTensor argument gathered
-    (`redistribute` to Replicate, which the collective counts show), fn run
-    on the whole local tensors, and each tensor it returns (a tuple of
-    them, or one) wrapped as a replicated DTensor. For a step that needs
-    every shard at once (the MoE dispatch's global ranking of slots)."""
-    from torch.distributed.tensor import Replicate
-    mesh = next(a.device_mesh for a in args if is_dtensor(a))
-    rep = [Replicate()] * mesh.ndim
-    local = [a.redistribute(mesh, rep).to_local() if is_dtensor(a) else a
-             for a in args]
-    out = fn(*local)
-
-    def wrap(x):
-        if isinstance(x, torch.Tensor):
-            return DTensor.from_local(x, mesh, rep, run_check=False)
-        return x
-    if isinstance(out, tuple):
-        return tuple(wrap(x) for x in out)
-    return wrap(out)

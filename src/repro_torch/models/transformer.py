@@ -33,9 +33,10 @@ data-axis shards gathered, the "model" shards kept; so too the embedding
 table and the head), DTensor propagates the layouts, and
 `models/spmd.py` takes over where it cannot (attention, the scan and the
 embedding lookup on local shards, decode over a length-sharded cache,
-the MoE dispatch) and pins the residual stream's layout
-(`spmd.constrain`). On plain tensors
-the `spmd` calls do nothing.
+the head and the loss on each rank's vocab shard) and pins the residual
+stream's layout (`spmd.constrain`); the MoE block partitions its
+dispatch itself (`models/moe.py`). On plain tensors the `spmd` calls do
+nothing.
 """
 from __future__ import annotations
 
@@ -321,12 +322,14 @@ def _check_forward(cfg, remat: str, enc_embeds) -> None:
 
 
 def _head(params, cfg, x: torch.Tensor) -> torch.Tensor:
-    """The logits; on DTensors their gradient keeps the logits' layout
-    (the vocab over "model"), which the softmax would otherwise gather."""
+    """The logits; on DTensors with the vocab over "model" (split there
+    by `spmd.shard_on_model` where the sharding rules leave it whole, a
+    vocab the axis does not divide), and their gradient kept in that
+    layout."""
     x = L.rms_norm(x, spmd.gather_weights(params["final_ln"]), cfg.norm_eps)
     out_t = spmd.gather_weights(params["embed"]).T if cfg.tie_embeddings \
         else spmd.gather_weights(params["out"])
-    return spmd.pin_grad(L.logits_head(out_t, x))
+    return spmd.pin_grad(L.logits_head(spmd.shard_on_model(out_t, 1), x))
 
 
 def lm_forward(params: dict, cfg, tokens: torch.Tensor, *,
@@ -474,14 +477,22 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
                              remat=remat)
     if extra_embeds is not None:
         logits = logits[:, extra_embeds.shape[1]:]
-    mask = labels != -100
-    safe = torch.where(mask, labels, 0).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    loss = token_loss(logits, labels)
     if cfg.num_experts:
         loss = loss + 0.01 * aux["moe_aux_loss"]
     return loss, aux
+
+
+def token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean next-token cross entropy of logits [B, S, V] over the
+    labels [B, S] that are not -100 (0 when every label is -100). On
+    DTensor logits with the vocab over "model" the log-probabilities are
+    taken on each rank's vocab shard (`spmd.vocab_nll`): nothing gathers
+    the logits or their gradient."""
+    mask = labels != -100
+    safe = torch.where(mask, labels, 0).long()
+    nll = spmd.vocab_nll(logits, safe)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
 
 
 def init_decode_state(cfg, batch: int, max_len: int, device,
