@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--access-scan-was PATH] [--migrate-was PATH]
                           [--engine-only | --hybrid-only | --train-only |
-                           --crest-only | --families-only]
+                           --crest-only | --families-only |
+                           --configs-only]
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \
         chip_smoke.py --dist-only [--device cpu]
 
@@ -16,7 +17,9 @@ entry without the work and scratch arguments) in phases 3 and 10.
 phase 3's flash_attention and mamba_scan checks and phase 11, --train-only
 phases 1, 2, phase 3's mamba_scan checks and phase 12, --crest-only
 phases 1, 2 and 13, --families-only phases 1, 2, phase 3's
-flash_attention checks and phase 14; none prints a result line. In order:
+flash_attention checks and phase 14, --configs-only phases 1, 2, phase
+3's paged_attention and flash_attention checks and phase 16; none prints
+a result line. In order:
 
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port (`src/repro_torch/kernels/
@@ -41,17 +44,20 @@ flash_attention checks and phase 14; none prints a result line. In order:
      shape and zamba2's carry; flash_attention at chatglm3-6b's, olmoe-1b-7b's,
      zamba2-2.7b's (H = KV = 32, D = 80), seamless-m4t-large-v2's
      (its encoder non-causal over 1024 frames, its decoder; H = KV = 16,
-     D = 64) and qwen2-vl-72b's (H = 64 over KV = 8, D = 128) prefill
-     shapes, each timed beside SDPA and its bound, and
+     D = 64), qwen2-vl-72b's (H = 64 over KV = 8, D = 128) and
+     granite-34b's (H = 48 over one KV head, D = 128) prefill shapes, each
+     timed beside SDPA and its bound, and
      at the bf16 edges of its tensor-core variant and on strided views,
      each case logged with the variant that ran: bf16 on the tensor
      cores, fp32 and a view TMA cannot describe on the CUDA cores;
      paged_attention at the serve shape, at granite's decode shape
-     (B=8 H=48 KV=1 D=128: REP 48, several blocks per KV head) and at
-     olmoe-1b-7b's (B=8 H=16 KV=16 D=128: REP 1) with random
+     (B=8 H=48 KV=1 D=128: REP 48, several blocks per KV head), at
+     olmoe-1b-7b's (B=8 H=16 KV=16 D=128: REP 1), at qwen2-vl-72b's
+     serve shape (B=8 H=64 KV=8 D=128: REP 8) and at the serve
+     launcher's granite-20b and glm4-9b (bt=32 MB=16) with random
      lengths, at full length and with edge lanes (length 0, a -1 hole
      inside the length, a slot >= n_slots), and at REP 1-48 x D 16-256 x
-     bt 4-16, each case logged with the variant of its split kernel: bf16
+     bt 4-32, each case logged with the variant of its split kernel: bf16
      on the tensor cores at every REP; access_scan also at n % 4 != 0, on
      a table view off 16-byte alignment and at 2^20 words over 65536
      superblocks), then timed beside its plain version, a one-call
@@ -59,8 +65,9 @@ flash_attention checks and phase 14; none prints a result line. In order:
      could take (bound_ms), at the shape of its path: per call over
      back-to-back calls with CUDA events (`ms`, `plain_ms`, `library_ms`)
      and as device time from a torch.profiler trace (`device_ms`, ...).
-     paged_attention is timed at granite's shape too and must take no
-     more device time there than SDPA; a profiled access_scan call must
+     paged_attention is timed at granite's and qwen2-vl's shapes too and
+     must take no more device time than SDPA at granite's; a profiled
+     access_scan call must
      be exactly one device operation (no memset), with the device
      operations per call counted at the serve shape and, with L2 evicted
      before each call, at 2^20 words, against the bound;
@@ -84,16 +91,14 @@ flash_attention checks and phase 14; none prints a result line. In order:
      this comparison runs on a second server over the model's first
      EAGER_LAYERS = 4 layers (the same weights), graph run then eager
      run;
-  5. where the serve time goes, for each mode: the same requests served
+  5. where the serve time goes, in graph mode: the same requests served
      again with torch.profiler on for two windows in mid-run; the
      device's busy and idle share of those windows' unprofiled wall time
      (from phase 4), kernels per step, host syncs, copies and memsets per
      window, and each HADES kernel's device time per launch
      (paged_attention: one split and one combine kernel per layer and
      step, timed together, and counted: 448 of each; access_scan: its one
-     kernel); in eager mode (at 4 layers) also the device time, copies
-     and memsets per step by the port function and host op that launched
-     them;
+     kernel);
   6. the kernel path against the plain path on the card at 2 layers and
      full width: a teacher-forced serve window (pool metadata exactly,
      logits within 5e-2), the kernel path a replay of the window's graph
@@ -195,7 +200,7 @@ flash_attention checks and phase 14; none prints a result line. In order:
  12. training, under deterministic algorithms where bits are compared:
      (a) zamba2-2.7b at full width and depth (bf16, remat="full" per
      group, attn_impl="blockwise", AdamW as `launch/train.py` builds it),
-     six steps of `Trainer.run` on B=2 x S=4096 tokens of
+     four steps of `Trainer.run` on B=2 x S=4096 tokens of
      `TokenPipeline(seed=0)` (B=1 if B=2 does not fit, the cut listed):
      every loss and grad norm finite, exactly 90 mamba_scan launches (45
      forward, 45 recompute) and 45 mamba_scan_bwd a step and no other
@@ -220,7 +225,7 @@ flash_attention checks and phase 14; none prints a result line. In order:
      YCSB-C (60 ops a key), the free run and the six systems under a target
      of 40 % of its footprint: every op counted, page utilization in (0, 1]
      in every window; RSS share, slowdown and faults per system; (c)
-     hash-pugh under YCSB-C with `proactive` at the paper's 10 M keys, 40 M
+     hash-pugh under YCSB-C with `proactive` at the paper's 10 M keys, 30 M
      ops in windows of 10 M: every op counted, live addresses inside their
      heaps and disjoint, page utilization in (0, 1] and RSS within the
      heaps' footprint in every window; load and window seconds,
@@ -268,7 +273,35 @@ flash_attention checks and phase 14; none prints a result line. In order:
      does the bf16 prefill through flash_attention (the kernel on the
      local tensors, 2 launches, on the tensor cores); (c) that
      model in bf16 saved whole and restored with its param specs: every
-     leaf equal, laid out by its spec.
+     leaf equal, laid out by its spec;
+ 16. configurations never run on the card before (random bf16 weights
+     from a generator seeded 0): (a) granite-34b whole on one card (88
+     layers, 33.96 B params, 63.26 GiB of weights; every earlier phase's
+     tensors freed first, and the depth cut, the cut printed, only if the
+     weights and WHOLE_HEADROOM do not fit the free memory): phase 4's
+     serve in graph mode under phase 4's gates (every window one replay,
+     every request complete, KV RSS 0 after the drain, paged_attention
+     once per layer and model step, all on the tensor cores, at REP 48,
+     graph tokens equal to eager ones at EAGER_LAYERS; no phase 5
+     traces), phase 7's prefill of B=2 x S=4096 (exactly 88
+     flash_attention_wgmma_kernel launches) and phase 6's flash against
+     blockwise at 2 layers in float32 and bfloat16, with the phase's peak
+     device memory; (b) granite-20b (52 layers) through the port's serve
+     launcher, `launch.serve.main(["--arch", "granite-20b", "--mode",
+     "generate", ...])` at 8 lanes, and (c) glm4-9b (40 layers, its
+     151,552-row head) through it with `--mode serve`, each gated on what
+     `main` returns (tokens of the full length in the vocab, or every
+     request complete and KV RSS 0) and on the launches of the whole call
+     (paged_attention once per layer and model step, all on the tensor
+     cores; access_scan and migrate once a window; no flash_attention;
+     every window after the first one replay), then glm4-9b's phase 7
+     prefill (exactly 40 flash launches); (d) qwen2-vl-72b text-only
+     through `Server` at full width and its first VLM_CUT layers (80
+     are 135 GiB), phase 4's gates, REP 8 paged_attention in its graph;
+     (e) the four `examples_torch/` scripts in this process through
+     runpy, with their own flags and no --device (the card), each with
+     its own assertions and its launches counted. The phase's parts'
+     seconds are printed.
 
 --dist-only runs on four cards, one process each, under `python3 -m
 torch.distributed.run --standalone --nproc-per-node 4` (the environment
@@ -988,16 +1021,19 @@ def _pa_timed(g, dev, shape):
                 shape=f"B={b} H={h} KV={kv} D={d} bt={bt} MB={mb} bf16")
 
 
-def check_paged_attention(dev, mc, kv_cfg, pcfg, olmoe):
+def check_paged_attention(dev, mc, kv_cfg, pcfg, olmoe, vlm, launcher):
     """Every case against the plain version (2e-5 fp32, 2e-2 bf16, access
     bits exact), each logged with the split kernel's variant: the serve
     shape with random lengths, at full length and with the edge lanes, in
     both dtypes; the same at granite's decode shape (H=48 over one KV head:
-    REP 48, several blocks per KV head) and at olmoe's serve shape `olmoe`
-    (H = KV = 16: REP 1); the CPU tests' shapes; REP 1, 4,
-    8, 16, 32, 40, 48 x D 16, 64, 128, 256 x bt 4, 8, 16 in bf16 with the
-    edge lanes (one page per split, most splits of the short lanes empty).
-    Then timed at the serve shape, granite's and olmoe's (random lengths)
+    REP 48, several blocks per KV head), at olmoe's serve shape `olmoe`
+    (H = KV = 16: REP 1), at qwen2-vl-72b's `vlm` (H=64 over KV=8: REP
+    8) and at the serve launcher's shapes `launcher` {name: shape} of
+    phase 16 (b), (c) (32-token blocks: two 16-token passes a page); the
+    CPU tests' shapes; REP 1, 4, 8, 16, 32, 40, 48 x D 16, 64, 128, 256 x
+    bt 4, 8, 16, 32 in bf16 with the edge lanes (one page per split, most
+    splits of the short lanes empty). Then timed at the serve shape,
+    granite's, olmoe's, qwen2-vl's and the launcher's (random lengths)
     beside the plain version, SDPA and the bound; at granite's the kernel
     must be no slower than SDPA in device time."""
     import torch
@@ -1016,11 +1052,13 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg, olmoe):
               for dtype in (torch.float32, torch.bfloat16)]
     cases += [((4, 2 * rep, 2, d, bt, 6, 32), torch.bfloat16, "edges")
               for rep in (1, 4, 8, 16, 32, 40, 48) for d in (16, 64, 128, 256)
-              for bt in (4, 8, 16)]
-    cases += [(shape, dtype, kind) for shape in (granite, olmoe)
+              for bt in (4, 8, 16, 32)]
+    cases += [(shape, dtype, kind)
+              for shape in (granite, olmoe, vlm, *launcher.values())
               for kind in ("random", "full", "edges")
               for dtype in (torch.bfloat16, torch.float32)]
-    main_err, olmoe_err, ran, worst = None, 0.0, collections.Counter(), {}
+    main_err, ran, worst = None, collections.Counter(), {}
+    shape_err = {shape: 0.0 for shape in (olmoe, vlm, *launcher.values())}
     for shape, dtype, kind in cases:
         q, pool, tables, lens = _pa_inputs(g, dev, dtype, *shape, kind=kind)
         args = (q, pool[:, 0], pool[:, 1], tables, lens)
@@ -1046,8 +1084,8 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg, olmoe):
             raise AssertionError("a lane of length 0 did not get zeros")
         if main_err is None:
             main_err = err
-        if shape == olmoe and dtype == torch.bfloat16:
-            olmoe_err = max(olmoe_err, err)
+        if shape in shape_err and dtype == torch.bfloat16:
+            shape_err[shape] = max(shape_err[shape], err)
         key = (str(dtype)[6:], want_v, "REP>32" if rep_ > 32 else "REP<=32")
         worst[key] = max(worst.get(key, 0.0), err)
         ran[want_v] += 1
@@ -1056,7 +1094,11 @@ def check_paged_attention(dev, mc, kv_cfg, pcfg, olmoe):
         f"(bf16), access bits exact, {dict(ran)}; max |err| {worst}")
     res = dict(max_abs_err=main_err, **_pa_timed(g, dev, main))
     res["granite"] = _pa_timed(g, dev, granite)
-    res["olmoe"] = dict(_pa_timed(g, dev, olmoe), max_abs_err=olmoe_err)
+    res["olmoe"] = dict(_pa_timed(g, dev, olmoe), max_abs_err=shape_err[olmoe])
+    res["qwen2_vl"] = dict(_pa_timed(g, dev, vlm), max_abs_err=shape_err[vlm])
+    for name, shape in launcher.items():
+        res[name] = dict(_pa_timed(g, dev, shape),
+                         max_abs_err=shape_err[shape])
     gr = res["granite"]
     if gr["variant"] != ops.TENSOR_CORES or \
             not gr["device_ms"] <= gr["library_device_ms"]:
@@ -1094,15 +1136,16 @@ def _flash_run(fn):
     return out, ran[0]
 
 
-def check_flash_attention(dev, mc, olmoe, zamba, enc, vlm):
+def check_flash_attention(dev, mc, olmoe, zamba, enc, vlm, granite):
     """Every case against the plain version (2e-5 fp32, 2e-2 bf16), with
     the variant that ran: the CPU tests' sweep and the prefill shape in
     both dtypes (chatglm3-6b's, olmoe-1b-7b's, whose H = KV = 16,
     zamba2-2.7b's shared block, H = KV = 32 at D = 80,
     seamless-m4t-large-v2's encoder, non-causal over its 1024 frames, and
-    decoder, H = KV = 16 at D = 64, and qwen2-vl-72b's, H = 64 over KV = 8
+    decoder, H = KV = 16 at D = 64, qwen2-vl-72b's, H = 64 over KV = 8
     at D = 128, also its shard on a card of the (2, 2) mesh of
-    --dist-only, B = 1 and H = 32 over KV = 4), the
+    --dist-only, B = 1 and H = 32 over KV = 4, and granite-34b's, H = 48
+    over one KV head at D = 128), the
     tensor-core kernel's bf16 edges, and bf16 views of a
     fused projection (the tensor cores) and one TMA cannot describe (the
     CUDA cores). bf16 cases other than that view must run on the tensor
@@ -1110,9 +1153,9 @@ def check_flash_attention(dev, mc, olmoe, zamba, enc, vlm):
     at the prefill shape beside the plain version, SDPA and the bound, and
     the CUDA-core kernel on the same bf16 inputs (as a view TMA cannot
     describe) in the same run; then the tensor-core kernel at olmoe's,
-    zamba2's, seamless's (encoder and decoder) and qwen2-vl's prefill
-    shapes, beside the plain version, SDPA (non-causal for the encoder)
-    and the bound."""
+    zamba2's, seamless's (encoder and decoder), qwen2-vl's and granite's
+    prefill shapes, beside the plain version, SDPA (non-causal for the
+    encoder) and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1137,16 +1180,17 @@ def check_flash_attention(dev, mc, olmoe, zamba, enc, vlm):
     cases = [(shape, causal, window, dtype, "sweep")
              for shape in FLASH_SWEEP for causal, window in FLASH_MASKS
              for dtype in tols]
-    olmoe_shape, zamba_shape, enc_shape, vlm_shape = (
+    olmoe_shape, zamba_shape, enc_shape, vlm_shape, granite_shape = (
         (PREFILL_B, PREFILL_S, c.num_heads, c.num_kv_heads,
-         c.resolved_head_dim) for c in (olmoe, zamba, enc, vlm))
+         c.resolved_head_dim) for c in (olmoe, zamba, enc, vlm, granite))
     # (name, shape, causal) of the prefill shapes timed after `main`
     more_shapes = [("olmoe", olmoe_shape, True),
                    ("zamba2", zamba_shape, True),
                    ("seamless_encoder", (PREFILL_B, enc.encoder_seq_len)
                     + enc_shape[2:], False),
                    ("seamless", enc_shape, True),
-                   ("qwen2_vl", vlm_shape, True)]
+                   ("qwen2_vl", vlm_shape, True),
+                   ("granite", granite_shape, True)]
     # the shard each card of --dist-only (c) runs: qwen2-vl's batch and
     # heads halved on the (2, 2) mesh
     vlm_rank = (PREFILL_B // 2, PREFILL_S, vlm.num_heads // 2,
@@ -1455,22 +1499,22 @@ def _serve_run(srv, params, reqs, label):
     return results, summary, watch["starts"]
 
 
-def serve_full(dev, arch="chatglm3-6b"):
-    """Phase 4 (phase 9(a) for olmoe-1b-7b) in graph mode (the default on
-    the card: every window one CUDA graph replay) at full width and depth,
-    phase 5 on it; then, on a second server over the model's first
-    EAGER_LAYERS layers (the same weights), the same requests in graph
-    mode and in eager mode (op by op), the eager run traced: the greedy
-    tokens, the final pool metadata and the launch counts of the two must
-    be identical. Every model step launches paged_attention once per
-    layer, and an MoE config's capacity at the lanes' batch drops no
-    token."""
+def serve_full(dev, arch="chatglm3-6b", layers=None, trace=True):
+    """Phase 4 (phase 9(a) for olmoe-1b-7b, 16 (a) and (d) for granite-34b
+    and qwen2-vl-72b) in graph mode (the default on the card: every window
+    one CUDA graph replay) at full width and depth (its first `layers`
+    layers if given), phase 5 on it (with `trace`); then, on a second
+    server over the model's first EAGER_LAYERS layers (the same weights),
+    the same requests in graph mode and in eager mode (op by op): the
+    greedy tokens, the final pool metadata and the launch counts of the
+    two must be identical. Every model step launches paged_attention once
+    per layer, and an MoE config's capacity at the lanes' batch drops no
+    token. The seconds of each part are printed."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import moe
     from repro_torch.models.model import Model
     from repro_torch.runtime.server import Request, Server, ServerConfig
-    cfg = get_config(arch)
+    cfg = _cut(arch, layers=layers)
     if cfg.num_experts and moe.capacity(SERVE["batch"], cfg) < SERVE["batch"]:
         raise AssertionError(f"{arch}: capacity {moe.capacity(SERVE['batch'], cfg)}"
                              f" < {SERVE['batch']} lanes: decode would drop")
@@ -1517,10 +1561,14 @@ def serve_full(dev, arch="chatglm3-6b"):
                 f"scale to the {run['windows']} windows' launch counts "
                 f"{run['launches']}")
 
+    t = [time.perf_counter()]
     srv = Server(model, ServerConfig(**SERVE))
     _, graph, starts = graph_run(srv, params, f"{arch} graph")
-    graph["trace"] = trace_serve(srv, params, reqs, starts)
-    traced_kernels("graph", graph)
+    t.append(time.perf_counter())
+    if trace:
+        graph["trace"] = trace_serve(srv, params, reqs, starts)
+        traced_kernels("graph", graph)
+    t.append(time.perf_counter())
     del srv
 
     # op by op a step is host-bound, its wall proportional to the layers
@@ -1531,9 +1579,9 @@ def serve_full(dev, arch="chatglm3-6b"):
     results, cut_graph, _ = graph_run(srv, cut_params, f"{label} graph")
     tokens = [r.tokens for r in results]
     final = {k: v.clone() for k, v in _flat(srv.state).items()}
+    t.append(time.perf_counter())
     srv._eager = True
-    results, eager, starts = _serve_run(srv, cut_params, reqs,
-                                        f"{label} eager")
+    results, eager, _ = _serve_run(srv, cut_params, reqs, f"{label} eager")
     if srv.replays:
         raise AssertionError("the eager serve replayed a graph")
     if [r.tokens for r in results] != tokens:
@@ -1544,25 +1592,24 @@ def serve_full(dev, arch="chatglm3-6b"):
             raise AssertionError(f"final pool metadata differs at {k}")
     data_err = (final["pool/data"].float()
                 - flat["pool/data"].float()).abs().max().item()
-    eager["trace"] = trace_serve(srv, cut_params, reqs, starts,
-                                 by_origin=True)
     srv._eager = False
     # the graph run's counts are added per replay from what its capture
-    # recorded: they must be the eager run's, counted at the wrappers, and
-    # the kernels that the eager run's trace found in two windows, per
-    # window
+    # recorded: they must be the eager run's, counted at the wrappers
     for key in ("launches", "paged_attention_variants"):
         if cut_graph[key] != eager[key]:
             raise AssertionError(f"{key}: graph {cut_graph[key]} vs eager "
                                  f"{eager[key]}")
-    traced_kernels("eager", eager)
+    t.append(time.perf_counter())
+    seconds = dict(zip(("graph", "trace", "graph_at_eager_depth", "eager"),
+                       np.diff(t).tolist()))
     log(f"{label} serve graph vs eager: tokens, final pool metadata and "
-        f"launch counts identical, the traced kernels per window times the "
-        f"windows equal to the counts, pool data max |err| {data_err:.3g}; "
+        f"launch counts identical, pool data max |err| {data_err:.3g}; "
         f"wall {cut_graph['ms_per_step']:.2f} vs {eager['ms_per_step']:.2f} "
         f"ms/step, {cut_graph['tok_per_s']:.1f} vs {eager['tok_per_s']:.1f} "
-        "tok/s")
+        f"tok/s; seconds "
+        f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     summary = dict(graph, layers=cfg.num_layers, params=n_params,
+                   seconds=seconds,
                    eager=dict(eager, layers=EAGER_LAYERS),
                    graph_at_eager_depth=cut_graph,
                    graph_vs_eager=dict(layers=EAGER_LAYERS,
@@ -1593,8 +1640,9 @@ def _busy_us(intervals) -> float:
     return total
 
 
-# the port's functions of a serve window that the eager trace labels with
-# a record_function range each (`_labelled`), innermost label winning
+# the port's functions that a by-origin trace (a prefill, a train step)
+# labels with a record_function range each (`_labelled`), innermost label
+# winning
 LABELLED = {
     "repro_torch.models.layers": ("embed", "rms_norm", "mlp", "positional",
                                   "logits_head"),
@@ -1696,7 +1744,7 @@ def _by_origin(host_ev, steps):
     return {f"{port} | {ops}": r for (port, ops), r in rows.items()}
 
 
-def trace_serve(srv, params, reqs, starts, by_origin=False):
+def trace_serve(srv, params, reqs, starts):
     """Serves the same requests again under torch.profiler over windows
     TRACE_FROM - 1 (which warms it up) to TRACE_FROM + 2, and reads windows
     TRACE_FROM and TRACE_FROM + 1. Host events are taken between the marks
@@ -1706,12 +1754,10 @@ def trace_serve(srv, params, reqs, starts, by_origin=False):
     and device clocks are not aligned closely enough to cut the device
     timeline at a host mark. The device's busy share is the union of those
     device intervals over the same two windows' wall time in the
-    unprofiled run (`starts`). With `by_origin` (eager mode) the port's
-    window functions are labelled (`_labelled`), and the device work is
-    also summed by the function and host op that launched it
-    (`_by_origin`). A trace that is not whole (`trace_events`), or that
-    lacks one of the four windows' closing copies, is taken again by
-    serving the requests again, up to PROFILES times."""
+    unprofiled run (`starts`). A trace that is not whole
+    (`trace_events`), or that lacks one of the four windows' closing
+    copies, is taken again by serving the requests again, up to PROFILES
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     if len(starts) < TRACE_FROM + 4:
@@ -1739,8 +1785,7 @@ def trace_serve(srv, params, reqs, starts, by_origin=False):
             return upload(host)
         srv._upload = traced
         try:
-            with _labelled() if by_origin else contextlib.nullcontext():
-                srv.serve(params, reqs)
+            srv.serve(params, reqs)
         finally:
             del srv._upload
         events, ok = trace_events(prof)
@@ -1826,19 +1871,6 @@ def trace_serve(srv, params, reqs, starts, by_origin=False):
                if kname == "paged_attention" else ""))
     for k, v in top:
         log(f"  {v / 1e3 / steps:9.4f} ms/step  {k[:100]}")
-    if by_origin:
-        rows = _by_origin(host_ev, steps)
-        res["by_origin_per_step"] = rows
-        for key, order in (("device_ms", "device time"),
-                           ("copies", "device-to-device copies"),
-                           ("memsets", "memsets")):
-            log(f"  by launching function and op, {order} per step:")
-            for name, r in sorted(rows.items(),
-                                  key=lambda kv: -kv[1][key])[:12]:
-                if r[key]:
-                    log(f"    {r[key]:9.4f}  {name[:110]}  ({r['kernels']:.1f}"
-                        f" kernels, {r['copies']:.1f} copies, "
-                        f"{r['memsets']:.2f} memsets)")
     return res
 
 
@@ -2284,11 +2316,13 @@ def mamba_kernel_vs_plain(dev, arch="falcon-mamba-7b", layers=2,
 # ---------------------------------------------------------------------------
 # phase 7: the prefill path at full width and depth
 # ---------------------------------------------------------------------------
-def prefill_full(dev, arch="chatglm3-6b"):
+def prefill_full(dev, arch="chatglm3-6b", layers=None):
+    """Phase 7 (9(b), 16 (a) and (c)): `measure_prefill` of `arch` at full
+    width and depth (its first `layers` layers if given), one wgmma flash
+    launch a layer."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = get_config(arch)
+    cfg = _cut(arch, layers=layers)
     model = Model(cfg, attn_impl="flash", device="cuda")
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     with torch.inference_mode():
@@ -3184,7 +3218,8 @@ def hybrid_path(dev):
 # ---------------------------------------------------------------------------
 # phase 12: training (zamba2-2.7b whole; kernel gradients, remat, resume)
 # ---------------------------------------------------------------------------
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 6   # (a)
+# (a); its steps cut for the run's time
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
 REMAT_CUT, REMAT_S = 4, 2048                 # (c): chatglm3-6b's 4 of 28
 RESUME_S = 256                               # (d): zamba2-2.7b reduced
 
@@ -3580,9 +3615,10 @@ def train_path(dev):
 # ---------------------------------------------------------------------------
 TABLE1_KEYS = 60_000          # benchmarks/table1_structures.py
 FIG7_KEYS = 40_000            # benchmarks/fig7_backends.py, --smoke
-# (c): the paper's 10 M keys (benchmarks/common.py FULL_N_KEYS); three
-# windows of 10 M ops (a window closes at the first 4096-op batch past it)
-FULL_KEYS, FULL_WINDOW_OPS, FULL_OPS = 10_000_000, 10_000_000, 40_000_000
+# (c): the paper's 10 M keys (benchmarks/common.py FULL_N_KEYS); two
+# windows of 10 M ops (a window closes at the first 4096-op batch past
+# it), the ops cut for the run's time
+FULL_KEYS, FULL_WINDOW_OPS, FULL_OPS = 10_000_000, 10_000_000, 30_000_000
 # (a) and (b)'s 47 short runs share a pool of worker processes; (c) runs
 # alone, so that its host seconds are its own
 CREST_WORKERS = 6
@@ -3822,7 +3858,10 @@ def crest_full(dev):
     bad = [i for i, w in enumerate(win) if not (
         0 < w["page_utilization"] <= 1 and
         w["rss_bytes"] <= w["footprint_bytes"])]
-    if stats.ops != FULL_OPS or len(win) < 3 or bad or not disjoint:
+    # every window the ops close: one at the first batch past each whole
+    # FULL_WINDOW_OPS but the last
+    if stats.ops != FULL_OPS or len(win) < FULL_OPS // FULL_WINDOW_OPS - 1 \
+            or bad or not disjoint:
         raise AssertionError(
             f"phase 13 (c): ops {stats.ops} of {FULL_OPS}, {len(win)} "
             f"windows, windows out of bounds {bad}, addresses disjoint "
@@ -5395,6 +5434,293 @@ def dist_only(device: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the configurations never run on the card before, and the
+# port's examples
+# ---------------------------------------------------------------------------
+WHOLE_ARCH = "granite-34b"   # (a): the largest dense config, on one card
+# (a): device memory kept free beside the weights (the serve pool, the
+# prefill's activations and fp32 logits); below it the depth is cut
+WHOLE_HEADROOM = 10 * 2 ** 30
+# (b), (c): the launcher's flags beside --arch and --mode: 8 lanes at
+# phase 4's max_len (the launcher's blocks: max_len / 16 tokens); generate
+# teacher-forces 32 prompt tokens and 33 new ones, 64 steps = 8 whole
+# windows; serve runs phase 4's 16 requests of 32 new tokens
+LAUNCHER_ARGS = {
+    "generate": ["--requests", "8", "--prompt-len", "32", "--max-new", "33",
+                 "--max-len", str(SERVE["max_len"])],
+    "serve": ["--requests", str(N_REQUESTS), "--lanes", "8", "--prompt-len",
+              "32", "--max-new", str(MAX_NEW), "--max-len",
+              str(SERVE["max_len"])]}
+# the configurations (b) and (c) run through the launcher, by result key
+LAUNCHED = {"granite_20b": "granite-20b", "glm4_9b": "glm4-9b"}
+
+
+def launcher_pa_shape(cfg):
+    """paged_attention's shape (B, H, KV, D, bt, MB, pool slots) in the
+    serve launcher's server at LAUNCHER_ARGS: 8 lanes of max_len tokens in
+    blocks of max_len / 16 (launch/serve.py)."""
+    from repro_torch.models.kvcache import KVCacheConfig
+    bt = max(SERVE["max_len"] // 16, 4)
+    kvc = KVCacheConfig(num_layers=cfg.num_layers, batch=8,
+                        max_blocks=-(-SERVE["max_len"] // bt),
+                        block_tokens=bt, num_kv_heads=cfg.num_kv_heads,
+                        head_dim=cfg.resolved_head_dim, dtype=cfg.dtype)
+    return (kvc.batch, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+            bt, kvc.max_blocks, kvc.pool_config().n_slots + 1)
+
+
+# (e): each example's own flags; train_lm with a fresh --ckpt-dir, cut
+# from its 200 steps to 60 (its 200 took 36.9 s of the run)
+EXAMPLE_ARGS = {"quickstart": [], "serve_kv": [],
+                "train_lm": ["--steps", "60"], "ycsb_crestkv": []}
+
+
+def whole_on_one_card(dev, arch=WHOLE_ARCH):
+    """(a) `arch` at full width and depth on one card, random bf16 weights
+    from a generator seeded 0 (every earlier phase's tensors freed first;
+    if the weights and WHOLE_HEADROOM do not fit the free memory, the
+    depth is cut to the most layers that do, and the cut listed): phase
+    4's serve in graph mode under phase 4's gates (`serve_full`, without
+    phase 5's traces), phase 7's prefill of B=2 x S=4096 (one
+    `flash_attention_wgmma_kernel` a layer), and phase 6's flash against
+    blockwise at 2 layers in float32 and bfloat16; the phase's peak
+    device memory."""
+    import gc
+    import torch
+    cfg = _cut(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    n_params = cfg.param_count()
+    weights = n_params * 2
+    per_layer = (weights - 2 * cfg.vocab_size * cfg.d_model * 2) \
+        / cfg.num_layers
+    fits = int((free - WHOLE_HEADROOM - (weights - per_layer
+                                          * cfg.num_layers)) // per_layer)
+    layers = None if fits >= cfg.num_layers else fits
+    log(f"phase 16 (a) {arch}: {cfg.num_layers} layers, {n_params / 1e9:.3f}"
+        f" B params, {weights / 2 ** 30:.2f} GiB of bf16 weights; the card "
+        f"has {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still allocated "
+        f"by this process), {WHOLE_HEADROOM / 2 ** 30:.0f} GiB kept free "
+        "beside the weights: "
+        + ("whole" if layers is None else f"cut to {layers} layers"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches, serve, steps = serve_full(dev, arch, layers=layers, trace=False)
+    t1 = time.perf_counter()
+    prefill = prefill_full(dev, arch, layers=layers)
+    t2 = time.perf_counter()
+    kvp = prefill_flash_vs_blockwise(dev, arch)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 16 (a) {arch}: serve {serve['ms_per_step']:.2f} ms a step, "
+        f"{serve['tok_per_s']:.1f} tok/s, {launches['paged_attention']} "
+        f"paged_attention launches in {steps} steps; prefill "
+        f"{prefill['ms_per_prefill']:.1f} ms, {prefill['tok_per_s']:.0f} "
+        f"tok/s, {prefill['launches']['flash_attention']} flash launches; "
+        f"peak device memory {peak / 2 ** 30:.2f} GiB; serve "
+        f"{t1 - t0:.1f} s, prefill {t2 - t1:.1f} s, 2-layer check "
+        f"{time.perf_counter() - t2:.1f} s")
+    return dict(arch=arch, layers=layers or cfg.num_layers,
+                cut=None if layers is None else
+                f"{layers} of {cfg.num_layers} layers",
+                params=n_params, weights_bytes=weights, free_bytes=free,
+                serve=serve, serve_steps=steps, prefill=prefill,
+                kernel_vs_plain=kvp, peak_device_bytes=peak)
+
+
+def launcher_run(dev, arch, mode):
+    """(b), (c) `repro_torch.launch.serve.main` on `arch` at full size in
+    `mode` (LAUNCHER_ARGS), on the card, its serving call timed (its first
+    window runs eagerly and captures the window's graph), every kernel's
+    launches counted from 0 over the whole call: generate's
+    tokens [8, 33] in the vocab, or every request completed ("eos" or
+    "length" at its max_new) and KV RSS 0 after the drain; paged_attention
+    once per layer and model step, all on its tensor-core variant,
+    access_scan and migrate once per window, no flash_attention; every
+    window after the first (the capture) one graph replay. Then the same
+    serving call again on the reset server, every window a replay, timed
+    warm (its launches not counted)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.runtime.server import Server
+    argv = ["--arch", arch, "--mode", mode] + LAUNCHER_ARGS[mode]
+    timed = {}
+    call = getattr(Server, mode)
+
+    def wrapped(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, *a, **kw)
+        torch.cuda.synchronize()
+        timed.update(s=time.perf_counter() - t0, args=(a, kw))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(Server, mode, wrapped):
+        run = launcher.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = dict(ops.launches), dict(ops.paged_variants)
+    srv = run["server"]
+    cfg = srv.model.cfg
+    w = srv.cfg.window or srv.cfg.collect_every
+    if mode == "generate":
+        toks = run["tokens"]
+        steps = 32 + 33 - 1
+        n_tok = toks.numel()
+        ok = (tuple(toks.shape) == (8, 33) and
+              bool(((toks >= 0) & (toks < cfg.vocab_size)).all()))
+        if not ok:
+            raise AssertionError(f"{arch} generate: tokens {tuple(toks.shape)}"
+                                 " not [8, 33] in the vocab")
+    else:
+        results = run["results"]
+        steps = len(srv.serve_log) * w
+        n_tok = sum(len(r.tokens) for r in results)
+        if len(results) != N_REQUESTS or any(
+                not r.tokens or r.finish_reason not in ("eos", "length")
+                or len(r.tokens) > MAX_NEW or (r.finish_reason == "length"
+                                               and len(r.tokens) != MAX_NEW)
+                for r in results):
+            raise AssertionError(f"{arch} serve: not every request completed")
+        if srv.kv_rss_bytes() != 0:
+            raise AssertionError(f"{arch} serve: KV RSS {srv.kv_rss_bytes()}"
+                                 " after the drain")
+    windows = steps // w
+    want = {"paged_attention": cfg.num_layers * steps,
+            "access_scan": windows, "migrate": windows}
+    log(f"phase 16 {arch} launcher --mode {mode}: {n_tok} tokens, {steps} "
+        f"model steps in {windows} windows ({srv.replays} replays), serving "
+        f"{timed['s']:.2f} s ({timed['s'] / steps * 1e3:.2f} ms a step, "
+        f"{n_tok / timed['s']:.1f} tok/s), the call {wall:.1f} s; launches "
+        f"{launches}, paged_attention variants {variants}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    _only(launches, want)
+    if variants != {ops.TENSOR_CORES: want["paged_attention"],
+                    ops.CUDA_CORES: 0}:
+        raise AssertionError(f"{arch}: paged_attention variants {variants}")
+    if srv.replays != windows - 1:
+        raise AssertionError(f"{arch}: {srv.replays} replays in {windows} "
+                             "windows, want all but the first")
+    peak = torch.cuda.max_memory_allocated()
+    a, kw = timed["args"]
+    srv.reset()
+    snap = ops.count_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call(srv, *a, **kw)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    ops.counts_since(snap)
+    if srv.replays != windows:
+        raise AssertionError(f"{arch}: the warm call replayed {srv.replays}"
+                             f" of {windows} windows")
+    log(f"phase 16 {arch} launcher --mode {mode}, the serving call again "
+        f"(warm, every window a replay): {warm:.2f} s, "
+        f"{warm / steps * 1e3:.2f} ms a step, {n_tok / warm:.1f} tok/s")
+    res = dict(arch=arch, mode=mode, argv=argv, layers=cfg.num_layers,
+               tokens=n_tok, steps=steps, windows=windows,
+               replays=windows - 1, serve_s=timed["s"],
+               ms_per_step_with_capture=timed["s"] / steps * 1e3,
+               warm_s=warm, ms_per_step=warm / steps * 1e3,
+               tok_per_s=n_tok / warm, call_s=wall, launches=launches,
+               paged_attention_variants=variants, peak_device_bytes=peak)
+    del run, srv
+    torch.cuda.empty_cache()
+    return res
+
+
+def examples_run(dev):
+    """(e) the four `examples_torch/` scripts on the card, in this process
+    through runpy with their own flags (EXAMPLE_ARGS; no --device: the
+    card), each with its own assertions; every kernel's launches counted
+    from 0 around each, and its seconds."""
+    import runpy
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for name, argv in EXAMPLE_ARGS.items():
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_example_")
+        if name == "train_lm":
+            argv = argv + ["--ckpt-dir", ckpt]
+        path = ROOT / "examples_torch" / f"{name}.py"
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            got = runpy.run_path(str(path))["main"](argv)
+            torch.cuda.synchronize()
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launches.items() if v}
+        res = dict(argv=argv, seconds=dt, launches=launches)
+        if name == "quickstart":
+            res.update(moves=got.counters()["moves"],
+                       page_utilization=got.page_utilization(),
+                       rss_bytes=got.rss_bytes())
+            ok = res["moves"] > 0 and launches.get("migrate", 0) > 0
+        elif name == "serve_kv":
+            srv, toks = got
+            res.update(tokens=list(toks.shape), replays=srv.replays)
+            ok = tuple(toks.shape) == (4, 48) and \
+                launches.get("paged_attention", 0) > 0
+        elif name == "train_lm":
+            hist = [(s, m["loss"]) for s, m in got["history"]]
+            steps = int(argv[argv.index("--steps") + 1]) \
+                if "--steps" in argv else 200
+            res.update(step=got["step"], losses=hist)
+            ok = got["step"] == steps and \
+                np.isfinite([v for _, v in hist]).all()
+        else:
+            res.update(got)
+            ok = all(0 < got[k]["page_util"] <= 1
+                     for k in ("baseline", "hades"))
+        log(f"phase 16 (e) examples_torch/{name}.py {' '.join(argv)}: "
+            f"{dt:.1f} s, launches {launches}; "
+            f"{json.dumps(res, default=str)}")
+        if not ok:
+            raise AssertionError(f"examples_torch/{name}.py: {res}")
+        out[name] = res
+    return out
+
+
+def configs_path(dev):
+    """Phase 16: (a) `whole_on_one_card` (granite-34b), (b) granite-20b
+    and (c) glm4-9b whole through the serve launcher (`launcher_run`),
+    glm4-9b's prefill too (phase 7), (d) qwen2-vl-72b's first VLM_CUT
+    layers through `Server` (`serve_full`, phase 4's gates, without phase
+    5's traces), (e) `examples_run`."""
+    t = [time.perf_counter()]
+    res = {"granite_34b": whole_on_one_card(dev)}
+    t.append(time.perf_counter())
+    res["granite_20b"] = launcher_run(dev, LAUNCHED["granite_20b"],
+                                      "generate")
+    t.append(time.perf_counter())
+    res["glm4_9b"] = dict(launcher=launcher_run(dev, LAUNCHED["glm4_9b"],
+                                                "serve"),
+                          prefill=prefill_full(dev, LAUNCHED["glm4_9b"]))
+    t.append(time.perf_counter())
+    launches, serve, steps = serve_full(dev, VLM_ARCH, layers=VLM_CUT,
+                                        trace=False)
+    res["qwen2_vl"] = dict(serve, layers=VLM_CUT, steps=steps)
+    t.append(time.perf_counter())
+    res["examples"] = examples_run(dev)
+    t.append(time.perf_counter())
+    res["seconds"] = {part: t[i + 1] - t[i] for i, part in enumerate("abcde")}
+    res["seconds"]["all"] = t[-1] - t[0]
+    log("phase 16 " + ", ".join(f"({k}) {v:.1f} s"
+                                for k, v in res["seconds"].items()))
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
@@ -5424,6 +5750,10 @@ def main(argv=None) -> int:
     only.add_argument("--families-only", action="store_true",
                       help="run phases 1, 2, phase 3's flash_attention "
                       "checks and phase 14 only, and print no result line")
+    only.add_argument("--configs-only", action="store_true",
+                      help="run phases 1, 2, phase 3's paged_attention and "
+                      "flash_attention checks and phase 16 only, and print "
+                      "no result line")
     only.add_argument("--dist-only", action="store_true",
                       help="under `python3 -m torch.distributed.run "
                       "--standalone --nproc-per-node 4`: the distributed "
@@ -5483,11 +5813,22 @@ def main(argv=None) -> int:
     mc, om = get_config("chatglm3-6b"), get_config("olmoe-1b-7b")
     zb = get_config("zamba2-2.7b")
     enc_cfg, vlm_cfg = get_config(ENC_ARCH), get_config(VLM_ARCH)
-    kv_cfg, okv = kv_config(mc), kv_config(om)
+    kv_cfg, okv, vkv = kv_config(mc), kv_config(om), kv_config(vlm_cfg)
     pcfg, opcfg = kv_cfg.pool_config(), okv.pool_config()
-    olmoe_pa = (okv.batch, om.num_heads, om.num_kv_heads,
-                om.resolved_head_dim, okv.block_tokens, okv.max_blocks,
-                opcfg.n_slots + 1)
+    olmoe_pa, vlm_pa = ((kvc.batch, c.num_heads, c.num_kv_heads,
+                         c.resolved_head_dim, kvc.block_tokens,
+                         kvc.max_blocks, kvc.pool_config().n_slots + 1)
+                        for c, kvc in ((om, okv), (vlm_cfg, vkv)))
+    flash_cfgs = (mc, om, zb, enc_cfg, vlm_cfg, get_config(WHOLE_ARCH))
+    launcher_pa = {cell: launcher_pa_shape(get_config(arch))
+                   for cell, arch in LAUNCHED.items()}
+
+    def attention_checks():
+        return dict(
+            paged_attention=check_paged_attention(dev, mc, kv_cfg, pcfg,
+                                                  olmoe_pa, vlm_pa,
+                                                  launcher_pa),
+            flash_attention=check_flash_attention(dev, *flash_cfgs))
     from repro_torch.core.collector import CollectorConfig
 
     def stamp(phase):
@@ -5506,7 +5847,7 @@ def main(argv=None) -> int:
         return 0
     if args.hybrid_only:
         stamp(3)
-        check_flash_attention(dev, mc, om, zb, enc_cfg, vlm_cfg)
+        check_flash_attention(dev, *flash_cfgs)
         check_mamba_scan(dev, get_config("falcon-mamba-7b"), zb)
         stamp(11)
         hybrid = hybrid_path(dev)
@@ -5525,12 +5866,21 @@ def main(argv=None) -> int:
         return 0
     if args.families_only:
         stamp(3)
-        flash = check_flash_attention(dev, mc, om, zb, enc_cfg, vlm_cfg)
+        flash = check_flash_attention(dev, *flash_cfgs)
         stamp(14)
         families = families_path(dev)
         log(json.dumps(dict(flash_attention=flash, **families), default=str))
         log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, "
             "part of 3, 14 only: no result line)")
+        return 0
+    if args.configs_only:
+        stamp(3)
+        attention = attention_checks()
+        stamp(16)
+        configs = configs_path(dev)
+        log(json.dumps(dict(attention, **configs), default=str))
+        log(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, "
+            "part of 3, 16 only: no result line)")
         return 0
     if args.crest_only:
         stamp(13)
@@ -5539,18 +5889,15 @@ def main(argv=None) -> int:
             "only: no result line)")
         return 0
     stamp(3)
-    kernels = {
-        "paged_attention": check_paged_attention(dev, mc, kv_cfg, pcfg,
-                                                 olmoe_pa),
-        "access_scan": check_access_scan(dev, pcfg, opcfg,
-                                         args.access_scan_was),
-        "migrate": check_migrate(dev, pcfg, CollectorConfig().move_budget,
-                                 opcfg, migrate_was),
-        "flash_attention": check_flash_attention(dev, mc, om, zb, enc_cfg,
-                                                 vlm_cfg),
-        "mamba_scan": check_mamba_scan(dev, get_config("falcon-mamba-7b"),
-                                       zb),
-    }
+    kernels = attention_checks()
+    kernels.update(
+        access_scan=check_access_scan(dev, pcfg, opcfg, args.access_scan_was),
+        migrate=check_migrate(dev, pcfg, CollectorConfig().move_budget,
+                              opcfg, migrate_was),
+        mamba_scan=check_mamba_scan(dev, get_config("falcon-mamba-7b"), zb))
+    kernels = {k: kernels[k] for k in ("paged_attention", "access_scan",
+                                       "migrate", "flash_attention",
+                                       "mamba_scan")}
     engine_kernels = check_engine_kernels(dev, engine_pool_config(),
                                           migrate_was)
     stamp("4-5")
@@ -5577,6 +5924,8 @@ def main(argv=None) -> int:
     families = families_path(dev)
     stamp(15)
     distributed = dist_path(dev)
+    stamp(16)
+    configs = configs_path(dev)
     # each kernel's launches on the path that runs it, counted from 0
     main_launches = {k: launches[k] for k in HADES_KERNELS}
     main_launches["flash_attention"] = \
@@ -5651,15 +6000,37 @@ def main(argv=None) -> int:
             row["qwen2_vl"].update(
                 launches=vlm["prefill"]["launches"][kname],
                 layers=vlm["layers"])
+            # at granite's shape (MQA, H = 48), which phase 16 (a) runs:
+            # launches a prefill of granite-34b
+            whole = configs["granite_34b"]
+            row["granite"] = {key: k["granite"].get(key) for key in keys}
+            row["granite"].update(
+                launches=whole["prefill"]["launches"][kname],
+                layers=whole["layers"])
             # the variant the main path ran (phase 7 checks its name)
             row.update(source=FLASH_SOURCES[k["variant"]],
                        variant=k["variant"], cuda_cores_ms=k["cuda_cores_ms"])
         if kname == "paged_attention":
-            # phase 4 checks that the serve path ran this variant only
-            row.update(variant=k["variant"], granite={
-                key: k["granite"][key] for key in (
-                    "shape", "variant", "groups", "device_ms", "bound_ms",
-                    "library_device_ms")})
+            # phase 4 checks that the serve path ran this variant only; at
+            # granite's REP 48 and qwen2-vl's REP 8, the launches of phase
+            # 16's serves of granite-34b and of qwen2-vl-72b's first
+            # VLM_CUT layers; at the launcher's 32-token blocks, those of
+            # (b) granite-20b and (c) glm4-9b
+            keys = ("shape", "variant", "groups", "max_abs_err", "ms",
+                    "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms")
+            row.update(variant=k["variant"], granite=dict(
+                {key: k["granite"].get(key) for key in keys},
+                launches=configs["granite_34b"]["serve"]["launches"][kname],
+                layers=configs["granite_34b"]["layers"]), qwen2_vl=dict(
+                {key: k["qwen2_vl"].get(key) for key in keys},
+                launches=configs["qwen2_vl"]["launches"][kname],
+                layers=VLM_CUT))
+            for cell in LAUNCHED:
+                run = configs[cell].get("launcher", configs[cell])
+                row[cell] = dict({key: k[cell].get(key) for key in keys},
+                                 launches=run["launches"][kname],
+                                 layers=run["layers"])
         if kname == "migrate":
             # at olmoe-1b-7b's 128 KiB rows, which phase 9 moves
             row["olmoe"] = {key: k["olmoe"][key] for key in (
@@ -5709,6 +6080,7 @@ def main(argv=None) -> int:
         "zamba2": hybrid, "train": train, "crest": crest,
         "encdec": families["encdec"], "vlm": families["vlm"],
         "families_seconds": families["seconds"], "dist": distributed,
+        "configs": configs,
         "seconds": time.perf_counter() - t_start}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

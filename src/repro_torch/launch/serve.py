@@ -6,7 +6,9 @@ reporting KV RSS and collector activity.
 `--mode generate` (default) teacher-forces one fixed batch through
 `Server.generate`; `--mode serve` drives the continuous-batching queue
 (`Server.serve`). `--temperature/--top-k` switch on sampling (the
-generator is seeded from --seed).
+generator is seeded from --seed). `main(argv)` returns what it ran: the
+server, the params, and the generated tokens (generate) or the
+completions (serve).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.models.model import Model
 from repro_torch.runtime.server import Request, Server, ServerConfig
 
 
-def main():
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -49,7 +51,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     be_params = be.pressure_params(args.backend, args.hbm_target_mb << 20)
     if args.hbm_target_mb and not be_params:
@@ -69,13 +71,15 @@ def main():
         top_k=args.top_k))
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)
+    run = dict(server=srv, params=params, tokens=None, results=None)
 
     if args.mode == "generate":
         prompts = rng.integers(0, cfg.vocab_size,
                                (args.requests, args.prompt_len))
         greedy = args.temperature <= 0
-        out = srv.generate(params, prompts, max_new=args.max_new,
-                           greedy=greedy, generator=None if greedy else gen)
+        out = run["tokens"] = srv.generate(
+            params, prompts, max_new=args.max_new, greedy=greedy,
+            generator=None if greedy else gen)
         print(f"generated {tuple(out.shape)} tokens; "
               f"KV RSS {srv.kv_rss_bytes()/2**20:.2f} MiB")
     else:
@@ -84,8 +88,8 @@ def main():
                         max_new=args.max_new,
                         temperature=args.temperature, top_k=args.top_k)
                 for _ in range(args.requests)]
-        results = srv.serve(params, reqs,
-                            generator=gen if args.temperature > 0 else None)
+        results = run["results"] = srv.serve(
+            params, reqs, generator=gen if args.temperature > 0 else None)
         print(f"served {len(results)} requests on {lanes} lanes in "
               f"{len(srv.serve_log)} windows ({srv.dispatches} dispatches); "
               f"{sum(len(r.tokens) for r in results)} tokens")
@@ -94,6 +98,7 @@ def main():
               f"{srv.kv_rss_bytes()/2**20:.2f} MiB")
     for r in srv.reports[-3:]:
         print("  collector:", {k: round(v, 4) for k, v in r.items()})
+    return run
 
 
 if __name__ == "__main__":

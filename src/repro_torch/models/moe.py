@@ -480,20 +480,97 @@ def moe_block_gathered(p: dict, x: torch.Tensor, cfg
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode-path MoE: gather only the routed experts' weights (exact, the
     same math as `moe_block` with no drops); it pays when T*k < E. x:
-    [B, S, D] with small T = B*S. The aux loss is zero, as in JAX."""
+    [B, S, D] with small T = B*S. The aux loss is zero, as in JAX. On
+    DTensors each rank runs it on its own shards
+    (`_moe_block_gathered_sharded`)."""
+    if spmd.is_dtensor(x):
+        return _moe_block_gathered_sharded(p, x, cfg)
     b, s, d = x.shape
+    out, counts = _gathered(p, x.reshape(-1, d), cfg)
+    return (out.reshape(b, s, d),
+            torch.zeros((), dtype=torch.float32, device=x.device), counts)
+
+
+def _gathered(p: dict, xf: torch.Tensor, cfg):
+    """The routed experts' products over the tokens xf [T, D]: (out [T, D],
+    counts [E] int32)."""
     e, k = cfg.num_experts, cfg.experts_per_token
-    xf = x.reshape(-1, d)
     _, topk_w, topk_e = _route(p, xf, k)
-    wi, wg, wo = p["wi"][topk_e], p["wg"][topk_e], p["wo"][topk_e]
+    return _products(p, xf, topk_w, topk_e), _counts(topk_e.reshape(-1), e)
+
+
+def _products(p: dict, xf: torch.Tensor, w: torch.Tensor, ids: torch.Tensor
+              ) -> torch.Tensor:
+    """sum_c w[t, c] * SwiGLU of expert ids[t, c] (an index into p's
+    experts) over xf [T, D]: [T, D]. Reads one expert matrix per row of
+    ids."""
+    wi, wg, wo = p["wi"][ids], p["wg"][ids], p["wo"][ids]
     h = torch.einsum("td,tkdf->tkf", xf, wi)
     g = torch.einsum("td,tkdf->tkf", xf, wg)
     h = F.silu(g.float()).to(h.dtype) * h
     y = torch.einsum("tkf,tkfd->tkd", h, wo)
-    out = torch.einsum("tk,tkd->td", topk_w.to(y.dtype), y)
-    return (out.reshape(b, s, d),
-            torch.zeros((), dtype=torch.float32, device=x.device),
-            _counts(topk_e.reshape(-1), e))
+    return torch.einsum("tk,tkd->td", w.to(y.dtype), y)
+
+
+def _moe_block_gathered_sharded(p: dict, x, cfg):
+    """`moe_block_gathered` on DTensors, on each rank's own shards (through
+    local_map): its tokens (the batch over the data axes where it divides
+    them), the router whole, and the experts' weights as the rules lay
+    them on "model" (`_expert_split`), never gathered there: where the
+    experts are split, a rank takes the routed rows of its own experts
+    only; where their hidden dim is, every routed row over its slice.
+    Either way the out is partial over "model", summed by
+    `spmd.constrain` (the dense FFN's TP sum), and the counts of the own
+    tokens partial over the data axes, summed to the whole [E]."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    split = _expert_split(p["wi"], mesh)
+    x_place = spmd._layout(mesh, x.shape[0])
+    rest = Replicate() if split == "whole" else Partial()
+    model = {"experts": (Shard(0), Shard(0)), "ffn": (Shard(2), Shard(1)),
+             "whole": (Replicate(), Replicate())}[split]
+    w_place = [tuple(model[i] if name == "model" else Replicate()
+                     for name in names) for i in (0, 0, 1)]
+    whole = tuple(Replicate() for _ in names)
+    e0 = mesh.get_local_rank("model") * (cfg.num_experts //
+                                         mesh.size(names.index("model"))) \
+        if split == "experts" else 0
+    own = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                for pl in x_place)
+
+    def local(x_, router, wi, wg, wo):
+        b, s, d = x_.shape
+        xf, lp = x_.reshape(-1, d), dict(router=router, wi=wi, wg=wg, wo=wo)
+        if split != "experts":
+            out, counts = _gathered(lp, xf, cfg)
+            return out.reshape(b, s, d), counts
+        # only the (token, choice) pairs routed to this rank's experts
+        _, topk_w, topk_e = _route(lp, xf, cfg.experts_per_token)
+        t, c = torch.nonzero((topk_e >= e0) & (topk_e < e0 + wi.shape[0]),
+                             as_tuple=True)
+        part = _products(lp, xf[t], topk_w[t, c][:, None],
+                         (topk_e[t, c] - e0)[:, None])
+        out = torch.zeros_like(xf).index_add_(0, t, part)
+        return (out.reshape(b, s, d),
+                _counts(topk_e.reshape(-1), cfg.num_experts))
+    data = spmd.data_axes(mesh)
+    out, counts = local_map(
+        local, device_mesh=mesh, redistribute_inputs=True,
+        out_placements=(tuple(rest if name == "model" else pl
+                              for name, pl in zip(names, x_place)), own),
+        in_placements=(x_place, whole, *w_place),
+        in_grad_placements=(
+            spmd._partial_on(mesh, x_place, () if split == "whole"
+                             else ("model",)),
+            spmd._partial_on(mesh, whole, data),
+            *(spmd._partial_on(mesh, pl, data) for pl in w_place)))(
+        x, p["router"], p["wi"], p["wg"], p["wo"])
+    zero = DTensor.from_local(torch.zeros((), dtype=torch.float32,
+                                          device=x.to_local().device),
+                              mesh, whole, run_check=False)
+    return spmd.constrain(out), zero, counts.redistribute(mesh, whole)
 
 
 def moe_block_ref(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -118,6 +118,10 @@ def _pa_want(dtype, rep, d):
 
 PA_SERVE = (8, 32, 2, 128, 16, 32)   # chatglm3-6b's serve shape
 PA_GRANITE = (8, 48, 1, 128, 16, 32)  # granite-20b/34b's decode (REP 48)
+PA_QWEN2_VL = (8, 64, 8, 128, 16, 32)  # qwen2-vl-72b's serve shape (REP 8)
+# the serve launcher's shapes at --max-len 512 (blocks of max_len / 16 = 32
+# tokens, two 16-token passes a page): granite-20b's and glm4-9b's
+PA_LAUNCHER = [(8, 48, 1, 128, 32, 16), (8, 32, 2, 128, 32, 16)]
 
 
 @pytest.mark.gpu
@@ -133,7 +137,7 @@ def test_paged_attention_kernel_matches_plain(cuda, b, h, kv, d, bt, mb,
 @pytest.mark.gpu
 @pytest.mark.parametrize("rep", [1, 4, 8, 16, 32, 40, 48])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
-@pytest.mark.parametrize("bt", [4, 8, 16])
+@pytest.mark.parametrize("bt", [4, 8, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_sweep(cuda, rep, d, bt, dtype):
     """REP x D x bt with the edge lanes (length 0, a -1 hole, a clamped
@@ -167,6 +171,35 @@ def test_paged_attention_granite_decode_shape(cuda, kind, dtype):
     assert tops._paged_groups(want, 48, 128) == (
         (3, 16) if dtype == torch.bfloat16 else (2, 24))
     args = _pa_case(*PA_GRANITE, 31, kind, cuda, dtype)
+    out, touched = _pa_check(args, dtype, want)
+    if kind == "edges":
+        assert not out[0].any() and not touched[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "full", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_qwen2_vl_serve_shape(cuda, kind, dtype):
+    """qwen2-vl-72b's serve shape (H=64 over KV=8): REP 8, one block per
+    KV head; bf16 on the tensor cores."""
+    want = _pa_want(dtype, 8, 128)
+    assert tops._paged_groups(want, 8, 128)[0] == 1
+    args = _pa_case(*PA_QWEN2_VL, 37, kind, cuda, dtype)
+    out, touched = _pa_check(args, dtype, want)
+    if kind == "edges":
+        assert not out[0].any() and not touched[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,d,bt,mb", PA_LAUNCHER)
+@pytest.mark.parametrize("kind", ["random", "full", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_launcher_shapes(cuda, b, h, kv, d, bt, mb, kind,
+                                         dtype):
+    """The serve launcher's 32-token blocks at granite-20b's REP 48 and
+    glm4-9b's REP 16: every page past its first 16 tokens."""
+    want = _pa_want(dtype, h // kv, d)
+    args = _pa_case(b, h, kv, d, bt, mb, 41, kind, cuda, dtype)
     out, touched = _pa_check(args, dtype, want)
     if kind == "edges":
         assert not out[0].any() and not touched[0].any()
@@ -611,10 +644,12 @@ def test_flash_attention_bf16_views(cuda):
 
 # the prefill shapes of the encoder-decoder and VLM families (b, s, h, kv,
 # d, causal): seamless-m4t-large-v2's encoder (non-causal over 1024
-# frames) and decoder, and qwen2-vl-72b's GQA (REP 8) at D = 128
+# frames) and decoder, qwen2-vl-72b's GQA (REP 8) at D = 128, and
+# granite-20b / 34b's MQA (H = 48 over one KV head)
 FLASH_FAMILY_SHAPES = [(2, 1024, 16, 16, 64, False),
                        (2, 4096, 16, 16, 64, True),
-                       (2, 4096, 64, 8, 128, True)]
+                       (2, 4096, 64, 8, 128, True),
+                       (2, 4096, 48, 1, 128, True)]
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of `repro_torch` loads no
-JAX and nothing of the JAX package, and `chip_smoke.py` imports neither.
+JAX and nothing of the JAX package, and neither `chip_smoke.py` nor the
+port's examples (`examples_torch/*.py`) import either.
 Importing starts no process group either (the dry run's fake group lives
 inside `run_cell`)."""
 import ast
@@ -61,13 +62,29 @@ def test_port_imports_no_jax_and_no_repro():
     assert not [m for m in out if _banned(m)]
 
 
-def test_chip_smoke_imports_no_jax_and_no_repro():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imports(path):
+    tree = ast.parse(path.read_text())
     names = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
+    return names
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    names = _imports(ROOT / "chip_smoke.py")
     assert names and not [n for n in names if _banned(n)]
     assert any(n.startswith("repro_torch") for n in names)
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_kv", "train_lm",
+                                  "ycsb_crestkv"])
+def test_examples_import_torch_and_the_port_only(name):
+    names = _imports(ROOT / "examples_torch" / f"{name}.py")
+    assert not [n for n in names if _banned(n)]
+    assert any(n.startswith("repro_torch") for n in names)
+    assert sorted((ROOT / "examples_torch").glob("*.py")) == [
+        ROOT / "examples_torch" / f"{n}.py" for n in (
+            "quickstart", "serve_kv", "train_lm", "ycsb_crestkv")]

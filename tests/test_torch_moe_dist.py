@@ -18,6 +18,14 @@ block and the JAX package's `moe_block`:
     [E, G, D] tensor; with the "moe_hints" activation hints too.
   * One fp32 train step of reduced olmoe-1b-7b on the four ranks, against
     the plain step, built and held as `test_torch_fsdp`'s.
+  * The decode path's `moe_block_gathered` at T*k < E (B=2 x S=1 tokens of
+    reduced olmoe-1b-7b, the experts split over "model", the batch over
+    "data"; one token of reduced mixtral-8x7b with 3 experts, their hidden
+    dim split over "model", the token on every data rank) on the four
+    ranks: the output within 1e-5 of the plain block's and of JAX's, the
+    counts equal, and no expert weight all-gathered over "model"; the
+    plain body run as it is on the same DTensors (the block before it
+    partitioned itself) gathers the olmoe experts' three weights there.
 """
 import dataclasses
 import json
@@ -51,6 +59,9 @@ CASES = [("olmoe", "olmoe-1b-7b", None, 1.25, False),
          ("olmoe_hints", "olmoe-1b-7b", None, 1.25, True),
          ("mixtral_ffn_hints", "mixtral-8x7b", 3, 1.25, True)]
 NAMES = [c[0] for c in CASES]
+# moe_block_gathered at T*k < E: (case, arch, experts, B) of one token each
+GATHERED = [("olmoe", "olmoe-1b-7b", None, 2),
+            ("mixtral_ffn", "mixtral-8x7b", 3, 1)]
 
 
 def _cfgs(arch, experts):
@@ -194,6 +205,59 @@ def _block_case(mesh, arch, experts, cf, hinted):
         shapes=comm.shapes, split=split, g=tmoe.capacity(B * S, tc, cf))
 
 
+def _gathered_case(mesh, arch, experts, b):
+    """`moe_block_gathered` of `b` one-token sequences (fp32), plain and on
+    DTensors laid out by the rules (the weights FSDP-gathered): the
+    outputs, the counts, the sharded block's collectives, and those of
+    the plain body (`moe._gathered`) run on the same DTensors as far as it
+    gets, with the error that stops it."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import spmd
+    _, tc = _cfgs(arch, experts)
+    arrays = _inputs(tc)
+    names = ("router", "wi", "wg", "wo")
+    x = torch.from_numpy(arrays["x"][:b, :1].copy())
+    out, _, counts = tmoe.moe_block_gathered(
+        {k: torch.from_numpy(arrays[k]) for k in names}, x, tc)
+    leaves = {k: torch.from_numpy(arrays[k]) for k in names}
+    dp = sh.distribute(leaves, mesh, sh._with_paths(
+        lambda path, leaf: sh.param_spec(mesh, "layers/0/moe/" + path,
+                                         tuple(leaf.shape)), leaves),
+        src_data_rank=None)
+    dx = sh.distribute_leaf(x, mesh, sh.P("data"), src_data_rank=None)
+    with implicit_replication():
+        gathered = spmd.gather_weights(dp)
+        rows, products = [], tmoe._products
+
+        def counted(p, xf, w, ids):
+            rows.append(ids.numel())
+            return products(p, xf, w, ids)
+        tmoe._products = counted
+        try:
+            with _Recorder() as comm:
+                dout, daux, dcounts = tmoe.moe_block_gathered(gathered, dx,
+                                                              tc)
+        finally:
+            tmoe._products = products
+        ran = [None] * dist.get_world_size()
+        dist.all_gather_object(ran, sum(rows))
+        before, error = _Recorder(), None
+        try:
+            with before:
+                tmoe._gathered(gathered, dx.reshape(b, tc.d_model), tc)
+        except (RuntimeError, AssertionError) as e:
+            error = type(e).__name__
+    return dict(out=out.numpy(), dout=dout.full_tensor().numpy(),
+                daux=daux.full_tensor().numpy(), counts=counts.numpy(),
+                dcounts=dcounts.full_tensor().numpy(), shapes=comm.shapes,
+                rows=ran,
+                before=before.shapes, before_error=error,
+                split=tmoe._expert_split(gathered["wi"], mesh),
+                weights=[list(gathered[k].to_local().shape)
+                         for k in ("wi", "wg", "wo")])
+
+
 def _worker(rank, path, out):
     from repro_torch.launch.mesh import make_host_mesh
     dist.init_process_group("gloo", init_method=f"file://{path}",
@@ -206,6 +270,12 @@ def _worker(rank, path, out):
             res[name] = {k: v for k, v in got.items()
                          if not isinstance(v, np.ndarray)}
             arrays.update({f"{name}/{k}": v for k, v in got.items()
+                           if isinstance(v, np.ndarray)})
+        for name, arch, experts, b in GATHERED:
+            got = _gathered_case(mesh, arch, experts, b)
+            res[f"gathered_{name}"] = {
+                k: v for k, v in got.items() if not isinstance(v, np.ndarray)}
+            arrays.update({f"gathered_{name}/{k}": v for k, v in got.items()
                            if isinstance(v, np.ndarray)})
         from test_torch_fsdp import _train_case
         g, p, leaf, misplaced = _train_case(mesh, "olmoe-1b-7b")
@@ -350,6 +420,52 @@ def test_four_ranks_train_step_equals_the_plain_step(four_ranks):
     assert not r["misplaced"]
     assert r["grad"] <= GRAD_TOL and r["param"] <= GRAD_TOL, r
     assert r["leaf"] <= LEAF_TOL, r
+
+
+@pytest.mark.parametrize("name", [c[0] for c in GATHERED])
+def test_gathered_block_on_shards_equals_plain_and_jax(four_ranks, name):
+    """`moe_block_gathered` at T*k < E on the (2, 2) mesh: the output within
+    1e-5 of the plain block's and of JAX's `moe_block_gathered` on the same
+    numpy inputs, the counts equal, the aux loss zero; its collectives
+    (the output's TP sum over "model", the counts summed over "data", the
+    token gathered where one sequence does not split over "data") hold
+    no expert weight, and where the experts split over "model" each
+    (token, choice) pair runs on one rank only. The plain body on the
+    same DTensors (the block
+    before it ran on shards) gathered the experts' weights over "model",
+    wherever it got that far."""
+    res, arrays = four_ranks
+    r = res[f"gathered_{name}"]
+    a = {k.split("/", 1)[1]: v for k, v in arrays.items()
+         if k.startswith(f"gathered_{name}/")}
+    _, arch, experts, b = next(c for c in GATHERED if c[0] == name)
+    jc, tc = _cfgs(arch, experts)
+    inputs = _inputs(tc)
+    want, _, jcounts = jmoe.moe_block_gathered(
+        {k: jnp.asarray(inputs[k]) for k in ("router", "wi", "wg", "wo")},
+        jnp.asarray(inputs["x"][:b, :1]), jc)
+    assert b * tc.experts_per_token < tc.num_experts
+    assert r["split"] == ("ffn" if experts else "experts")
+    assert np.abs(a["dout"] - a["out"]).max() <= 1e-5
+    assert np.abs(a["dout"] - np.asarray(want)).max() <= 1e-5
+    assert np.array_equal(a["dcounts"], a["counts"])
+    assert np.array_equal(a["dcounts"], np.asarray(jcounts))
+    assert a["daux"] == 0
+    if not experts:
+        # each rank ran only the (token, choice) pairs of its own experts:
+        # every pair once over the four ranks
+        assert sum(r["rows"]) == b * tc.experts_per_token, r["rows"]
+    gathered = [shape for op, shape in r["shapes"]
+                if op.startswith("all_gather")]
+    assert not [shape for shape in gathered if shape in r["weights"]]
+    assert sorted(op.split("_into")[0] for op, _ in r["shapes"]) == sorted(
+        ["all_reduce", "all_reduce"] if b % 2 == 0
+        else ["all_gather", "all_reduce"])
+    before = [shape for op, shape in r["before"]
+              if op.startswith("all_gather") and shape in r["weights"]]
+    assert r["before_error"] is not None
+    if not experts:
+        assert sorted(before) == sorted(r["weights"])
 
 
 _JAX_MOE = r"""
