@@ -16,6 +16,13 @@ Each collect pass, run between application steps:
   3. MIAD updates C_t; uniformly cold COLD superblocks become MADV_COLD
      candidates; access bits and ATCs clear; the epoch advances.
 
+Inside a window program the pass stamps the span recorder's segments
+(`repro_torch/spans.py`): "collect.classify", "collect.plan" and
+"collect.add_drop" (the move plan's two `ot.add_drop` calls, each
+direction), "collect.migrate" (the copy and the restock) and
+"collect.policy" (MIAD, the superblock stats and the clears); outside one
+the stamps do nothing.
+
 The JAX package routes the sweep and the copy through its Pallas kernels
 only behind `CollectorConfig.use_pallas`; both of its paths are
 bit-identical, and here a CUDA tensor always goes through the kernels.
@@ -27,6 +34,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import freelist as fl
 from repro_torch.core import object_table as ot
 from repro_torch.core import policy
@@ -106,10 +114,12 @@ def _plan_moves(cfg: pl.PoolConfig, state: Dict, ids_m, ok_m,
     tbl = ot.set_drop(tbl, torch.where(ok, ids_m, cfg.max_objects).long(),
                       new_words)
     free_q, head, count = fl.push(cfg, state["free_q"], head, count, src, ok)
+    spans.stamp("collect.plan")
     sb_occ = ot.add_drop(state["sb_occ"], torch.where(
         ok, src // cfg.sb_slots, cfg.n_sbs).long(), -1)
     sb_occ = ot.add_drop(sb_occ, torch.where(
         ok, dst // cfg.sb_slots, cfg.n_sbs).long(), 1)
+    spans.stamp("collect.add_drop")
     ref_src = state["slot_ref"][torch.clamp(src, 0, n_slots - 1).long()]
     slot_ref = ot.set_drop(state["slot_ref"],
                            torch.where(ok, src, n_slots).long(), False)
@@ -118,6 +128,7 @@ def _plan_moves(cfg: pl.PoolConfig, state: Dict, ids_m, ok_m,
     state = dict(state, table=tbl, slot_owner=owner, free_q=free_q,
                  free_head=head, free_count=count, sb_occ=sb_occ,
                  slot_ref=slot_ref)
+    spans.stamp("collect.plan")
     return state, src, dst, ok
 
 
@@ -140,7 +151,9 @@ def migrate(cfg: pl.PoolConfig, state: Dict, to_hot, to_cold, *,
                                                state["slot_owner"])
     state = dict(state, data=data, free_q=free_q, free_head=free_head,
                  free_count=free_count)
-    return state, ok_h.sum(dtype=_I32), ok_c.sum(dtype=_I32)
+    n_hot, n_cold = ok_h.sum(dtype=_I32), ok_c.sum(dtype=_I32)
+    spans.stamp("collect.migrate")
+    return state, n_hot, n_cold
 
 
 def collect(pool_cfg: pl.PoolConfig, col_cfg: CollectorConfig,
@@ -149,6 +162,7 @@ def collect(pool_cfg: pl.PoolConfig, col_cfg: CollectorConfig,
     new_tbl, to_hot, to_cold, skipped_atc = classify(pool_cfg, col_cfg,
                                                      state)
     state = dict(state, table=new_tbl)
+    spans.stamp("collect.classify")
     state, n_hot, n_cold = migrate(pool_cfg, state, to_hot, to_cold,
                                    move_budget=col_cfg.move_budget)
 
@@ -183,6 +197,7 @@ def collect(pool_cfg: pl.PoolConfig, col_cfg: CollectorConfig,
         armed=torch.zeros_like(state["armed"]),
         win_accesses=zero, win_promos=zero, win_faults=zero,
         total_moves=state["total_moves"] + n_hot + n_cold)
+    spans.stamp("collect.policy")
     return state, report
 
 

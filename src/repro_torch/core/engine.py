@@ -33,6 +33,13 @@ the host, so choosing a graph never syncs. Every other call, and every
 call on the CPU, runs op by op (the JAX generic shape).
 
 Every op in a trace advances the window clock, `free` included.
+
+Each aligned window is a span recorder program ("engine",
+`repro_torch/spans.py`), on the CPU too: its stamps close "ops.<kind>"
+(each run of one op kind), the collector's segments, "backend" and "pack"
+(the per-step report layout), and come back in `serve_steps`' one copy of
+the window's reports, under the host spans "engine.window" ("prepare",
+"launch", "wait", "unpack").
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import spans
 from repro_torch.core import backend as be
 from repro_torch.core import collector as col
 from repro_torch.core import graphs
@@ -56,6 +64,7 @@ _I32 = torch.int32
 READ, WRITE = pl.OP_READ, pl.OP_WRITE
 ALLOC, FREE = pl.OP_ALLOC, pl.OP_FREE
 OP_CODES = {"read": READ, "write": WRITE, "alloc": ALLOC, "free": FREE}
+_OP_SEGMENTS = {code: "ops." + op for op, code in OP_CODES.items()}
 
 REPORT_KEYS = ("moved_to_hot", "moved_to_cold", "skipped_atc",
                "promotion_rate", "proactive_ok", "ciw_threshold",
@@ -114,6 +123,7 @@ def collect_and_backend(pool_cfg: pl.PoolConfig, col_cfg: col.CollectorConfig,
         torch.float32) * sb_bytes
     report["did_collect"] = torch.ones((), dtype=torch.bool,
                                        device=tier.device)
+    spans.stamp("backend")
     return state, report
 
 
@@ -175,10 +185,14 @@ def run_window(step_fn: Callable, collect_fn: Callable, arm_fn: Callable,
 def _op_step(pool_cfg: pl.PoolConfig, state: Dict, xs: Dict
              ) -> Tuple[Dict, torch.Tensor]:
     """One traced op batch: xs = {"op": a Python int, "ids" [K], "values"
-    [K, W]}. Returns (state, read values [K, W] in the values' dtype)."""
+    [K, W], "last": whether it ends a run of its op kind}. Returns (state,
+    read values [K, W] in the values' dtype)."""
     state, vals = pl.apply_op(pool_cfg, state, xs["op"], xs["ids"],
                               xs["values"])
-    return state, vals.to(xs["values"].dtype)
+    vals = vals.to(xs["values"].dtype)
+    if xs["last"]:
+        spans.stamp(_OP_SEGMENTS[xs["op"]])
+    return state, vals
 
 
 def _host_ops(op) -> List[int]:
@@ -226,7 +240,8 @@ class _WindowRunner:
 
     def _steps(self, state, ops, ids, values, clock: int):
         """The window protocol op by op over ops[i], ids[i], values[i]."""
-        xs = [{"op": op, "ids": ids[i], "values": values[i]}
+        xs = [{"op": op, "ids": ids[i], "values": values[i],
+               "last": i + 1 == len(ops) or ops[i + 1] != op}
               for i, op in enumerate(ops)]
         state, outs, reports = run_window(
             self._step, self._collect, col.arm, state, xs, clock,
@@ -243,13 +258,14 @@ class _WindowRunner:
         t, every = len(ops), self.every
         aligned = (isinstance(step0, int) and step0 % every == 0
                    and t % every == 0 and t > 0)
-        if not aligned or ids.device.type != "cuda" or self.eager:
+        if not aligned:
             return self._steps(state, ops, ids, values, int(step0))
+        graph = ids.device.type == "cuda" and not self.eager
         outs, reps = [], []
         for lo in range(0, t, every):
             state, out, rep = self._window(state, ops[lo:lo + every],
                                            ids[lo:lo + every],
-                                           values[lo:lo + every])
+                                           values[lo:lo + every], graph)
             outs.append(out)
             reps.append(rep)
         if len(outs) == 1:
@@ -257,15 +273,19 @@ class _WindowRunner:
         return (state, torch.cat(outs),
                 {k: torch.cat([r[k] for r in reps]) for k in REPORT_KEYS})
 
-    def _window(self, state, ops, ids, values):
-        """One aligned window as one graph replay (a key's first window
-        runs for real, then is captured)."""
+    def _window(self, state, ops, ids, values, graph: bool):
+        """One aligned window: with `graph`, one graph replay (a key's
+        first window runs for real, then is captured), else op by op."""
+        def body(carry, x):
+            with spans.program("engine", x[0].device):
+                carry, out, rep = self._steps(carry, ops, x[0], x[1], 0)
+                spans.stamp("pack")
+            return carry, {"out": out, "report": rep}
+        if not graph:
+            state, outs = body(state, (ids, values))
+            return state, outs["out"], outs["report"]
         key = (tuple(ops), tuple(ids.shape), tuple(values.shape),
                values.dtype)
-
-        def body(carry, x):
-            carry, out, rep = self._steps(carry, ops, x[0], x[1], 0)
-            return carry, {"out": out, "report": rep}
         if self._g is None:
             self._g = graphs.WindowGraphs(ids.device)
         g = self._g.graphs.get(key)
@@ -321,24 +341,39 @@ def make_trace(pool_cfg: pl.PoolConfig,
             "values": vals}
 
 
+def _copy_reports(reports) -> Tuple[List[str], List[List[float]]]:
+    """The one device-to-host copy of `window_reports`, which also brings
+    back the span recorder's pending stamp areas (`spans.fetch`): (keys,
+    host floats [K][T] of the per-step layout, or [R][K] of a list)."""
+    if isinstance(reports, dict):
+        keys = list(reports)
+        t = reports[keys[0]].numel()
+        host = spans.fetch([reports[k].to(torch.float64) for k in keys])
+        return keys, host.reshape(len(keys), t).tolist()
+    keys = list(reports[0])
+    host = spans.fetch([r[k].to(torch.float64).reshape(1)
+                        for r in reports for k in keys])
+    return keys, host.reshape(len(reports), len(keys)).tolist()
+
+
+def _report_dicts(reports, keys: List[str], host: List[List[float]]
+                  ) -> List[Dict[str, float]]:
+    """The real collect reports as dicts, from `_copy_reports`' floats."""
+    if isinstance(reports, dict):
+        did = host[keys.index("did_collect")]
+        return [{k: host[j][i] for j, k in enumerate(keys)}
+                for i in range(len(did)) if did[i]]
+    return [dict(zip(keys, row)) for row in host]
+
+
 def window_reports(reports) -> List[Dict[str, float]]:
     """Host-side floats of the real collect reports, from the per-step
     layout {key: [T]} (`did_collect` marks them) or from a list of one
     report per collect (the server's): the one sync a window pays for
     them (a single device-to-host copy)."""
-    if isinstance(reports, dict):
-        keys = list(reports)
-        host = torch.stack([reports[k].to(torch.float64)
-                            for k in keys]).cpu().tolist()
-        did = host[keys.index("did_collect")]
-        return [{k: host[j][i] for j, k in enumerate(keys)}
-                for i in range(len(did)) if did[i]]
-    if not reports:
+    if not isinstance(reports, dict) and not reports:
         return []
-    keys = list(reports[0])
-    host = torch.stack([torch.stack([r[k].to(torch.float64) for k in keys])
-                        for r in reports]).cpu().tolist()
-    return [dict(zip(keys, row)) for row in host]
+    return _report_dicts(reports, *_copy_reports(reports))
 
 
 class Engine:
@@ -384,15 +419,24 @@ class Engine:
         """Stream `trace` window by window (`window` steps per call, by
         default `collect_every`), reading each window's reports on the
         host between calls. Returns (state, outs [T, K, W], reports
-        list)."""
+        list). Each window is a host span "engine.window" (its index in
+        the op stream: `window`) over "engine.prepare", "engine.launch"
+        (the programs enqueued), "engine.wait" (the reports' one copy)
+        and "engine.unpack"."""
         t = len(trace["op"])
         window = window or self.opts.collect_every
         outs, reps = [], []
         for lo in range(0, t, window):
-            chunk = {kk: v[lo:lo + window] for kk, v in trace.items()}
-            state, out, rep = self._run(state, chunk, step0 + lo)
-            outs.append(out)
-            reps.extend(window_reports(rep))
+            with spans.span("engine.window", window=(step0 + lo) // window):
+                with spans.span("engine.prepare"):
+                    chunk = {kk: v[lo:lo + window] for kk, v in trace.items()}
+                with spans.span("engine.launch"):
+                    state, out, rep = self._run(state, chunk, step0 + lo)
+                with spans.span("engine.wait"):
+                    host = _copy_reports(rep)
+                with spans.span("engine.unpack"):
+                    outs.append(out)
+                    reps.extend(_report_dicts(rep, *host))
         if not outs:               # empty trace: clean no-op
             return state, torch.zeros_like(trace["values"]), reps
         return state, torch.cat(outs, dim=0), reps

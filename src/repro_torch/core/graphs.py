@@ -16,7 +16,9 @@ through it.
     twice. A capture that fails raises: nothing falls back.
   * `replay`: copy the input into the graph's static input, replay, and add
     the kernel launches its capture recorded (`kops.add_counts`), so that
-    `kops.launches` stays true under replays.
+    `kops.launches` stays true under replays. A body that opens a span
+    recorder program (`spans.program`) leaves its stamp area with the
+    graph, and each replay hands it to the window's copy (`spans.ran`).
 
 All graphs of one holder share one memory pool.
 """
@@ -28,18 +30,21 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import spans
 from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass
 class Graph:
     """One captured window program: the graph, its static input (a tensor
-    or a pytree of tensors) and outputs, and the kernel launches one replay
-    makes."""
+    or a pytree of tensors) and outputs, the kernel launches one replay
+    makes, and the span recorder's program it captured (None when the
+    recorder was off)."""
     graph: object
     x: object
     outs: object
     counts: Dict[str, Dict[str, int]]
+    stamps: object = None
 
 
 class WindowGraphs:
@@ -93,6 +98,8 @@ class WindowGraphs:
             buf.copy_(t)
         g.graph.replay()
         kops.add_counts(g.counts)
+        if g.stamps is not None:
+            spans.ran(g.stamps)
         return g.outs
 
     def first_window(self, key, body: Callable, carry, x, adopt: Callable,
@@ -115,11 +122,13 @@ class WindowGraphs:
         if generator is not None:
             graph.register_generator_state(generator)
         snap = kops.count_snapshot()
+        spans.take_captured()
         try:
             with torch.cuda.graph(graph, pool=self.mempool, stream=self.side):
                 new, static_outs = body(carry, static_x)
                 self.write_back(new)
         finally:
             counts = kops.counts_since(snap)
-        self.graphs[key] = Graph(graph, static_x, static_outs, counts)
+        self.graphs[key] = Graph(graph, static_x, static_outs, counts,
+                                 spans.take_captured())
         return carry, outs

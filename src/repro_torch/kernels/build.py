@@ -22,7 +22,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "access_scan", "migrate", "flash_attention",
-           "flash_attention_wgmma", "mamba_scan")
+           "flash_attention_wgmma", "mamba_scan", "stamp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,7 @@ _ARGTYPES = {
     "mamba_scan": (_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
     "mamba_scan_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        ctypes.c_longlong, _I, _P),
+    "stamp": (_P, _I, _P),
 }
 # the source of each C entry point that is not named after its own
 ENTRIES = {"mamba_scan_bwd": "mamba_scan"}

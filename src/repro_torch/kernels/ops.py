@@ -10,6 +10,11 @@ count in `launches`. Empty inputs return before the C entry point, which
 therefore launches on every call. There is no fallback: a kernel that does
 not build or launch raises.
 
+`stamp` (the span recorder's device clock, `repro_torch/spans.py`) is the
+one kernel that is not counted: it measures the main path, it is not part
+of it, and it has no plain version (the recorder writes the host clock on
+the CPU itself).
+
 `mamba_scan` is differentiable: its backward is the kernel
 `mamba_scan_bwd` (`_MambaScan`). `flash_attention` and `paged_attention`
 have no gradient, as their TPU kernels have none: on every device they
@@ -549,3 +554,23 @@ def mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     the plain version's. Differentiable in a, b and h0 (`_MambaScan`):
     the gradient is bit for bit autograd's through the plain version."""
     return _MambaScan.apply(a, b, h0)
+
+
+# ---------------------------------------------------------------------------
+# stamp (the span recorder's device clock; no TPU counterpart)
+# ---------------------------------------------------------------------------
+def stamp(area: torch.Tensor, k: int) -> None:
+    """Write the device clock (%globaltimer, ns) into slot `k` of `area`, a
+    contiguous float64 CUDA tensor: slot 0 takes the reading's raw 64 bits,
+    slot k > 0 the reading minus slot 0's as a float64 (`csrc/stamp.cu`).
+    One launch of one thread on the current stream; not counted in
+    `launches`."""
+    _check(area.device.type == "cuda", "stamp: the area must lie on CUDA")
+    _check(area.dtype == torch.float64 and area.is_contiguous(),
+           "stamp: the area must be contiguous float64")
+    _check(0 <= k < area.numel(), f"stamp: slot {k} outside the area")
+    lib = build.lib("stamp")
+    rc = lib.stamp(area.data_ptr(), k, _stream())
+    if rc != 0:
+        raise RuntimeError(f"stamp kernel failed to launch: "
+                           f"{lib.error_string(rc).decode()} (code {rc})")

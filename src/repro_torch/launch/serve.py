@@ -9,14 +9,23 @@ reporting KV RSS and collector activity.
 generator is seeded from --seed). `main(argv)` returns what it ran: the
 server, the params, and the generated tokens (generate) or the
 completions (serve).
+
+The last line, "spans: {...}", is the span recorder's view of the run
+(`repro_torch.spans.summary`): host ms a window by span and its host
+cycle, device ms a window by stamp segment (by program), the device's
+untraced idle share, the served requests' time to first token and
+latency (mean and p95 ms from their call's start), the windows seen, the
+graph captures and the entries dropped.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs import get_config
 from repro_torch.core import backend as be
 from repro_torch.models.model import Model
@@ -58,6 +67,7 @@ def main(argv=None) -> dict:
         ap.error(f"--hbm-target-mb is not applicable to {args.backend!r}"
                  " (it declares no pressure field)")
 
+    spans.reset()
     cfg = get_config(args.arch, reduced=args.reduced)
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device)
@@ -98,6 +108,7 @@ def main(argv=None) -> dict:
               f"{srv.kv_rss_bytes()/2**20:.2f} MiB")
     for r in srv.reports[-3:]:
         print("  collector:", {k: round(v, 4) for k, v in r.items()})
+    print("spans:", json.dumps(spans.summary()))
     return run
 
 

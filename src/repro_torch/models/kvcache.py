@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import backend as be
 from repro_torch.core import collector as col
 from repro_torch.core import engine as eng
@@ -181,13 +182,17 @@ def attend(cfg: KVCacheConfig, state: Dict, layer: int, q: torch.Tensor,
     lens = torch.where(active, lens, 0).to(_I32)
     pages = pool["data"].view(-1, 2, cfg.block_tokens, cfg.num_kv_heads,
                               cfg.head_dim)
+    spans.stamp("kv.append")
     out, touched = kops.paged_attention(q.contiguous(), pages[:, 0],
                                         pages[:, 1], slots.contiguous(), lens)
+    spans.stamp("attention")
     # inactive lanes really do return ZEROS
     out = torch.where(active[:, None, None], out, 0)
     touched_ids = torch.where(touched & live & active[:, None], tbl,
                               -1).reshape(-1)
-    return out, dict(state, pool=_record_touched(pcfg, pool, touched_ids))
+    pool = _record_touched(pcfg, pool, touched_ids)
+    spans.stamp("kv.record")
+    return out, dict(state, pool=pool)
 
 
 def _record_touched(pcfg: pl.PoolConfig, pool: Dict,

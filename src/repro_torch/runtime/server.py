@@ -42,6 +42,18 @@ op, as JAX keeps `_win_generic`; so does every window on the CPU, and on
 CUDA with the private `_eager` set (the tests and `chip_smoke.py` compare
 the two modes that way).
 
+Both programs are span recorder programs (`repro_torch/spans.py`): their
+stamps close "lanes" (the serve program's lane events), in the window's
+first step four segments a layer ("model" up to the KV append, then
+"kv.append" with the table lookup, "attention" for `paged_attention`,
+"kv.record" for the access accounting) and "model" for the rest of the
+step with its sampling, then one "step" a later step, the collector's
+segments, "backend", and "pack". `serve`'s packed output and the stamps
+share one buffer and its one copy; `serve` records the host spans
+"serve.call" > "serve.window" > "serve.schedule", "serve.upload",
+"serve.launch", "serve.wait", "serve.unpack", and the request events
+"admit", "first_token" and "finish".
+
 `overlap_collect=True` arms the ATC epoch one step before each window
 closes, so objects dereferenced by the closing step carry ATC > 0 and do
 not move. `Server.serve` is the continuous-batching driver: lanes go
@@ -58,6 +70,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import spans
 from repro_torch.core import backend as be
 from repro_torch.core import collector as col
 from repro_torch.core import engine as eng
@@ -172,6 +185,7 @@ class Server:
         positions = state["pos"][:, None]
         for li, lp in enumerate(params["layers"]):
             def attend(q, k, v, st=state, li=li):
+                spans.stamp("model")
                 st = kvc.append_layer(cfg, st, li, k[:, 0], v[:, 0])
                 out, st = kvc.attend(cfg, st, li, q[:, 0],
                                      seq_lens=st["pos"] + 1)
@@ -184,15 +198,19 @@ class Server:
 
     def _step(self, params, do_sample, carry, forced):
         """One window step: forced token (>= 0) or self-feed the previous
-        one; inactive lanes decode a pinned pad token."""
-        tok = torch.where(forced >= 0, forced, carry["tok"])
-        tok = torch.where(carry["kv"]["active"], tok, 0)
-        kv, logits = self._model_step(params, carry["kv"], tok)
-        if do_sample:
-            nxt = sampling.sample(logits, carry["temp"], carry["topk"],
-                                  generator=self._gen)
-        else:
-            nxt = torch.argmax(logits, -1).to(_I32)
+        one; inactive lanes decode a pinned pad token. A program's first
+        step is stamped layer by layer, a later one as one "step"."""
+        first = spans.first_step()
+        with spans.quiet(not first):
+            tok = torch.where(forced >= 0, forced, carry["tok"])
+            tok = torch.where(carry["kv"]["active"], tok, 0)
+            kv, logits = self._model_step(params, carry["kv"], tok)
+            if do_sample:
+                nxt = sampling.sample(logits, carry["temp"], carry["topk"],
+                                      generator=self._gen)
+            else:
+                nxt = torch.argmax(logits, -1).to(_I32)
+        spans.stamp("model" if first else "step")
         return dict(carry, kv=kv, tok=nxt), {"logits": logits, "tok": nxt}
 
     def _collect(self, carry):
@@ -231,34 +249,47 @@ class Server:
                     close copies to the host in one go."""
 
         def window(carry, toks):
-            carry, outs, reports = self._run(params, do_sample, carry, toks,
-                                             clock)
-            return carry, {
-                "logits": torch.stack([o["logits"] for o in outs], dim=1),
-                "tok": torch.stack([o["tok"] for o in outs], dim=1),
-                "reports": reports}
+            with spans.program("window", toks.device):
+                carry, outs, reports = self._run(params, do_sample, carry,
+                                                 toks, clock)
+                outs = {
+                    "logits": torch.stack([o["logits"] for o in outs], dim=1),
+                    "tok": torch.stack([o["tok"] for o in outs], dim=1),
+                    "reports": reports}
+                spans.stamp("pack")
+            return carry, outs
 
         def serve(carry, inp):
-            b = self.cfg.batch
+            b, every = self.cfg.batch, self.cfg.collect_every
             w = inp.shape[0] // b - 4
-            free, admit = inp[:b].bool(), inp[b:2 * b].bool()
-            topk = inp[2 * b:3 * b]
-            temp = inp[(3 + w) * b:].view(torch.float32)
-            kv = kvc.free_lanes(self.kv_cfg, carry["kv"], free)
-            carry = dict(carry, kv=kvc.admit_lanes(kv, admit),
-                         temp=torch.where(admit, temp, carry["temp"]),
-                         topk=torch.where(admit, topk, carry["topk"]))
-            carry, outs, reports = self._run(
-                params, do_sample, carry, inp[3 * b:(3 + w) * b].view(b, w),
-                clock)
-            kv = carry["kv"]
-            sampled = torch.stack([o["tok"] for o in outs], dim=1)
-            gauges = [pl.rss_bytes(self.kv_cfg.pool_config(), kv["pool"]),
-                      (kv["block_tables"] >= 0).sum()]
-            vals = gauges + [r[k] for r in reports for k in eng.REPORT_KEYS]
-            return carry, {"packed": torch.cat([
-                sampled.flatten().double(),
-                torch.stack([v.double() for v in vals])])}
+            n_rep = (clock + w) // every - clock // every
+            n_packed = b * w + 2 + n_rep * len(eng.REPORT_KEYS)
+            with spans.program("serve", inp.device, n_packed) as prog:
+                free, admit = inp[:b].bool(), inp[b:2 * b].bool()
+                topk = inp[2 * b:3 * b]
+                temp = inp[(3 + w) * b:].view(torch.float32)
+                kv = kvc.free_lanes(self.kv_cfg, carry["kv"], free)
+                carry = dict(carry, kv=kvc.admit_lanes(kv, admit),
+                             temp=torch.where(admit, temp, carry["temp"]),
+                             topk=torch.where(admit, topk, carry["topk"]))
+                spans.stamp("lanes")
+                carry, outs, reports = self._run(
+                    params, do_sample, carry,
+                    inp[3 * b:(3 + w) * b].view(b, w), clock)
+                kv = carry["kv"]
+                sampled = torch.stack([o["tok"] for o in outs], dim=1)
+                gauges = [pl.rss_bytes(self.kv_cfg.pool_config(), kv["pool"]),
+                          (kv["block_tables"] >= 0).sum()]
+                vals = gauges + [r[k] for r in reports
+                                 for k in eng.REPORT_KEYS]
+                parts = [sampled.flatten().double(),
+                         torch.stack([v.double() for v in vals])]
+                # the packed output shares its buffer, and so its copy,
+                # with the stamps
+                packed = torch.cat(parts) if prog is None else \
+                    torch.cat(parts, out=prog.payload)
+                spans.stamp("pack")
+            return carry, {"packed": packed}
 
         return {"window": window, "serve": serve}[name]
 
@@ -455,89 +486,120 @@ class Server:
         window_idx = 0
         dev = self.device
         pcfg = self.kv_cfg.pool_config()
-        n_rep, n_keys = w // every, len(eng.REPORT_KEYS)
-        while True:
-            free = np.zeros((b,), bool)
-            admit = np.zeros((b,), bool)
-            temp = np.zeros((b,), np.float32)
-            topk = np.zeros((b,), np.int32)
-            for i in range(b):
-                ln = lanes[i]
-                if ln is not None and ln.done:
-                    free[i] = True
-                    results[ln.rid] = Completion(
-                        ln.rid, ln.out, ln.reason,
-                        (ln.admitted_at, window_idx))
-                    lanes[i] = None
-                if lanes[i] is None and queue:
-                    rid, req = queue.popleft()
-                    lanes[i] = _Lane(rid=rid, req=req, admitted_at=window_idx)
-                    admit[i] = True
-                    temp[i] = req.temperature
-                    topk[i] = req.top_k
-            if not any(lanes) and not free.any():
-                break
-            if window_idx >= max_windows:
-                raise RuntimeError(f"serve exceeded max_windows={max_windows}")
+        with spans.span("serve.call") as call:
+            cid = None if call is None else call.id
+            while True:
+                t_window = spans.now()
+                free = np.zeros((b,), bool)
+                admit = np.zeros((b,), bool)
+                temp = np.zeros((b,), np.float32)
+                topk = np.zeros((b,), np.int32)
+                for i in range(b):
+                    ln = lanes[i]
+                    if ln is not None and ln.done:
+                        free[i] = True
+                        results[ln.rid] = Completion(
+                            ln.rid, ln.out, ln.reason,
+                            (ln.admitted_at, window_idx))
+                        lanes[i] = None
+                    if lanes[i] is None and queue:
+                        rid, req = queue.popleft()
+                        lanes[i] = _Lane(rid=rid, req=req,
+                                         admitted_at=window_idx)
+                        admit[i] = True
+                        temp[i] = req.temperature
+                        topk[i] = req.top_k
+                        spans.event("admit", rid=rid, call=cid,
+                                    window=window_idx)
+                if not any(lanes) and not free.any():
+                    break
+                if window_idx >= max_windows:
+                    raise RuntimeError(
+                        f"serve exceeded max_windows={max_windows}")
 
-            toks = np.zeros((b, w), np.int32)
-            for i, ln in enumerate(lanes):
-                if ln is None:
-                    continue
-                row = np.full((w,), -1, np.int32)
-                prompt = ln.req.prompt
-                n_force = min(max(len(prompt) - ln.steps, 0), w)
-                row[:n_force] = prompt[ln.steps:ln.steps + n_force]
-                toks[i] = row
-
-            # lane events at the window entry, then W steps + collects: the
-            # window's inputs go to the device in one copy
-            host = np.concatenate([free, admit, topk, toks.ravel(),
-                                   temp.view(np.int32)]).astype(np.int32)
-            outs = self._dispatch("serve", params, self._upload(host), w)
-            window_idx += 1
-
-            # the window's one sync: tokens, gauges and reports together
-            host = outs["packed"].cpu().tolist()
-            sampled_h = np.asarray(host[:b * w], np.int64).reshape(b, w)
-            rss_h, live_h = host[b * w], host[b * w + 1]
-            vals = host[b * w + 2:]
-            for j in range(n_rep):
-                self.reports.append(dict(zip(
-                    eng.REPORT_KEYS, vals[j * n_keys:(j + 1) * n_keys])))
-
-            for i, ln in enumerate(lanes):
-                if ln is None:
-                    continue
-                p = len(ln.req.prompt)
-                for t in range(w):
-                    if ln.done:
-                        break
-                    s = ln.steps + t
-                    if s < p - 1:
+                toks = np.zeros((b, w), np.int32)
+                for i, ln in enumerate(lanes):
+                    if ln is None:
                         continue
-                    ln.out.append(int(sampled_h[i, t]))
-                    if ln.out[-1] == self.cfg.eos_token:
-                        ln.done, ln.reason = True, "eos"
-                    elif len(ln.out) >= ln.req.max_new:
-                        ln.done, ln.reason = True, "length"
-                    elif s + 1 >= self.cfg.max_len:
-                        ln.done, ln.reason = True, "length"
-                ln.steps += w
-            self.serve_log.append({
-                "window": window_idx,
-                "active": sum(ln is not None for ln in lanes),
-                "admitted": int(admit.sum()), "freed": int(free.sum()),
-                "queued": len(queue),
-                "rss_bytes": rss_h,
-                "live_bytes": live_h * pcfg.slot_bytes,
-            })
+                    row = np.full((w,), -1, np.int32)
+                    prompt = ln.req.prompt
+                    n_force = min(max(len(prompt) - ln.steps, 0), w)
+                    row[:n_force] = prompt[ln.steps:ln.steps + n_force]
+                    toks[i] = row
+
+                # lane events at the window entry, then W steps + collects:
+                # the window's inputs go to the device in one copy
+                host = np.concatenate([free, admit, topk, toks.ravel(),
+                                       temp.view(np.int32)]).astype(np.int32)
+                with spans.span("serve.window", start=t_window, call=cid,
+                                window=window_idx):
+                    # the lane events and the upload's host array, done
+                    # before the window could be told from the final check
+                    with spans.span("serve.schedule", start=t_window):
+                        pass
+                    with spans.span("serve.upload"):
+                        x = self._upload(host)
+                    with spans.span("serve.launch"):
+                        outs = self._dispatch("serve", params, x, w)
+                    window_idx += 1
+
+                    # the window's one sync: tokens, gauges, reports and
+                    # the program's stamps together
+                    with spans.span("serve.wait"):
+                        host = spans.fetch([outs["packed"]]).tolist()
+                    with spans.span("serve.unpack"):
+                        self._unpack(host, lanes, cid, window_idx - 1)
+                        self.serve_log.append({
+                            "window": window_idx,
+                            "active": sum(ln is not None for ln in lanes),
+                            "admitted": int(admit.sum()),
+                            "freed": int(free.sum()),
+                            "queued": len(queue),
+                            "rss_bytes": host[b * w],
+                            "live_bytes": host[b * w + 1] * pcfg.slot_bytes,
+                        })
         assert all(r is not None for r in results)
         # hand the server back in the fixed-batch contract (all lanes live)
         self.state = dict(self.state, active=torch.ones(
             (b,), dtype=torch.bool, device=dev))
         self._sample_in_scan = False
         return results
+
+    def _unpack(self, host: List[float], lanes: List[Optional[_Lane]],
+                call: Optional[int], window: int) -> None:
+        """A serve window's host part after its copy: the collect reports,
+        then each lane's sampled tokens, which finish it on EOS, max_new or
+        lane capacity."""
+        b, w = self.cfg.batch, self.cfg.window or self.cfg.collect_every
+        n_keys = len(eng.REPORT_KEYS)
+        sampled = np.asarray(host[:b * w], np.int64).reshape(b, w)
+        vals = host[b * w + 2:]
+        for j in range(w // self.cfg.collect_every):
+            self.reports.append(dict(zip(
+                eng.REPORT_KEYS, vals[j * n_keys:(j + 1) * n_keys])))
+        for i, ln in enumerate(lanes):
+            if ln is None:
+                continue
+            p = len(ln.req.prompt)
+            for t in range(w):
+                if ln.done:
+                    break
+                s = ln.steps + t
+                if s < p - 1:
+                    continue
+                ln.out.append(int(sampled[i, t]))
+                if len(ln.out) == 1:
+                    spans.event("first_token", rid=ln.rid, call=call,
+                                window=window)
+                if ln.out[-1] == self.cfg.eos_token:
+                    ln.done, ln.reason = True, "eos"
+                elif len(ln.out) >= ln.req.max_new:
+                    ln.done, ln.reason = True, "length"
+                elif s + 1 >= self.cfg.max_len:
+                    ln.done, ln.reason = True, "length"
+            if ln.done:
+                spans.event("finish", rid=ln.rid, call=call, window=window)
+            ln.steps += w
 
     def reset(self, active: bool = True) -> None:
         """Fresh serving state (empty pool, zeroed clock, reports and

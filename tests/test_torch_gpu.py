@@ -1814,3 +1814,61 @@ def test_world1_nccl_mesh_flash_prefill_matches_plain(nccl_mesh):
     assert got["launches"]["flash_attention"] == cfg.num_layers
     assert got["flash_variants"][tops.TENSOR_CORES] == cfg.num_layers
     assert torch.equal(out.full_tensor(), plain)
+
+
+@pytest.mark.gpu
+def test_stamp_kernel_writes_the_device_clock(cuda):
+    """Slot 0 takes %globaltimer's raw bits, a later slot its offset from
+    slot 0: a ~1 ms spin between two stamps reads as ~1 ms; the stamp is
+    not a counted launch."""
+    area = torch.zeros(4, dtype=torch.float64, device=cuda)
+    snap = tops.count_snapshot()
+    tops.stamp(area, 0)
+    torch.cuda._sleep(2_000_000)
+    tops.stamp(area, 1)
+    tops.stamp(area, 2)
+    torch.cuda.synchronize()
+    assert all(v == 0 for c in tops.counts_since(snap).values()
+               for v in c.values())
+    host = area.cpu().numpy()
+    assert host[:1].view(np.int64)[0] > 0
+    assert 1e5 < host[1] < 1e8 and host[1] <= host[2] < host[1] + 1e6
+    assert host[3] == 0
+    with pytest.raises(ValueError):
+        tops.stamp(area, 4)
+
+
+@pytest.mark.gpu
+def test_graph_windows_bring_their_stamps_back(cuda):
+    """A serve call and an engine stream on the card, each window after
+    the first a graph replay: every window brings back one stamps entry
+    in its one copy, with the segments the eager window stamps, in order
+    and tiling the window; each program is captured once."""
+    from repro_torch import spans
+    from repro_torch.core import engine as eng
+    from repro_torch.core import pool as pl
+    spans.reset()
+    _, params, g, e = _graph_pair()
+    g.serve(params, _graph_requests(0))
+    e.serve(params, _graph_requests(0))
+    wins = spans.windows(spans.records())
+    assert len(wins) == len(g.serve_log) + len(e.serve_log)
+    names = {w["stamps"]["names"] for w in wins}
+    assert len(names) == 1 and g.replays == len(g.serve_log) - 1
+    for w in wins:
+        t = w["stamps"]["t"]
+        assert (np.diff(t) >= 0).all()
+        assert sum(spans.segments(w["stamps"]).values()) == t[-1] - t[0]
+    assert spans.counters["captures.serve"] == 1
+    spans.reset()
+    pcfg = pl.make_config(64, 8, sb_slots=8, page_slots=4, slack=2.0)
+    steps = _engine_windows(np.random.default_rng(3), 48, 6, 4, 6, 8)
+    en = _engine(pcfg, "proactive", 4, False, cuda, False)
+    state = _loaded(en, 48, np.random.default_rng(1))
+    en.serve_steps(state, eng.make_trace(pcfg, steps, device=cuda))
+    wins = spans.windows(spans.records())
+    assert len(wins) == 6 and en.replays == 4
+    assert all(w["stamps"]["names"][-1] == "pack" for w in wins)
+    assert spans.counters["captures.engine"] == 2
+    assert spans.counters["stamps_lost"] == 0
+    spans.reset()

@@ -10,10 +10,12 @@ between two correct implementations, as `test_torch_server.py` notes):
 the generated tokens or the completions, the final KV RSS, the serve log
 and the collector reports must be identical, and so must the printed
 lines, but for a remark the port's KV RSS line leaves out (the collector
-lines' dicts equal, their keys in another order). Without
+lines' dicts equal, their keys in another order) and the port's last line,
+its span recorder's summary. Without
 `--device` the launcher asks for CUDA and raises where there is none."""
 import ast
 import dataclasses
+import json
 import sys
 from unittest import mock
 
@@ -87,8 +89,21 @@ def test_serve_launcher_follows_jax(arch, mode, capsys):
         assert srv.serve_log == js.serve_log
     assert srv.kv_rss_bytes() == float(js.kv_rss_bytes())
     assert srv.reports == js.reports and srv.reports
-    # the same lines, but for a remark the port's KV RSS line leaves out;
-    # the collector's dicts are equal, not in the same key order
+    # the same lines, but for a remark the port's KV RSS line leaves out
+    # and the port's last line, its span recorder's summary; the
+    # collector's dicts are equal, not in the same key order
+    out, summary = out.rstrip("\n").rsplit("\n", 1)
+    assert summary.startswith("spans: ")
+    summary = json.loads(summary[len("spans: "):])
+    assert summary["windows"] == (len(srv.serve_log) if mode == "serve"
+                                  else 0)
+    assert summary["device_ms"]
+    reqs = summary["requests_ms"]
+    assert set(reqs) == ({"ttft", "latency"} if mode == "serve" else set())
+    for mean, p95 in reqs.values():
+        assert 0.0 < mean and 0.0 < p95
+    if mode == "serve":
+        assert reqs["ttft"][0] <= reqs["latency"][0]
     assert _lines(out) == _lines(jax_out.replace(
         " (reclaimed after finishes)", ""))
 
